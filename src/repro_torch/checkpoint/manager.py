@@ -1,0 +1,135 @@
+"""GeekModel save/restore in the reference's checkpoint format, with no JAX.
+
+The counterpart of ``repro.checkpoint.manager.save_model`` /
+``restore_model``. A checkpoint directory holds ``step_<8 digits>/``
+with one ``leaf_<5 digits>.npy`` per array and a ``manifest.json``
+(``{"step", "treedef", "extra", "leaves"}``). Leaf *i* is the *i*-th name
+of ``extra["fields"]``: the reference stores ``sorted(arrays)`` and JAX
+flattens a dict in sorted-key order. The ``treedef`` string is ignored
+on read. A step is written into ``tmp.<step>`` and renamed into place
+only when complete, so a crash never leaves a half-written step.
+
+``model_from_numpy`` carries state across: host arrays + manifest
+metadata -> a ``GeekModel`` on a device.
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+
+import numpy as np
+import torch
+
+from repro_torch.core import model as model_mod
+from repro_torch.core import transform as transform_mod
+from repro_torch.utils.device import resolve_device
+
+#: dtypes of the canonical leaves, as the reference writes them
+_LEAF_DTYPES = {"centers": np.float32, "center_valid": np.bool_,
+                "k_star": np.int32, "radius": np.float32}
+
+
+def _step_dir(directory: str, step: int) -> str:
+    return os.path.join(directory, f"step_{step:08d}")
+
+
+def save_model(directory: str, model, *, step: int = 0) -> None:
+    """Persist a fitted GeekModel, readable by ``repro``'s restore_model."""
+    arrays = {f: getattr(model, f).detach().cpu().numpy().astype(
+        _LEAF_DTYPES[f]) for f in model_mod.ARRAY_FIELDS}
+    tmeta = None
+    if model.transform is not None:
+        tmeta = transform_mod.transform_meta(model.transform)
+        for name, arr in transform_mod.transform_arrays(model.transform).items():
+            arrays["transform_" + name] = np.asarray(arr)
+    fields = sorted(arrays)
+    extra = {"kind": "geek_model", "meta": model.static_meta(),
+             "transform": tmeta, "fields": fields}
+    manifest = {"step": step,
+                "treedef": "PyTreeDef({" + ", ".join(
+                    f"'{f}': *" for f in fields) + "})",
+                "extra": extra,
+                "leaves": [{"file": f"leaf_{i:05d}.npy",
+                            "shape": list(arrays[f].shape),
+                            "dtype": str(arrays[f].dtype)}
+                           for i, f in enumerate(fields)]}
+    os.makedirs(directory, exist_ok=True)
+    tmp = os.path.join(directory, f"tmp.{step}")
+    final = _step_dir(directory, step)
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp)
+    for i, f in enumerate(fields):
+        np.save(os.path.join(tmp, f"leaf_{i:05d}.npy"), arrays[f])
+    with open(os.path.join(tmp, "manifest.json"), "w") as fh:
+        json.dump(manifest, fh)
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.rename(tmp, final)
+
+
+def _latest_step(directory: str) -> int:
+    if not os.path.isdir(directory):
+        raise FileNotFoundError(f"no checkpoint directory {directory}")
+    steps = sorted(int(name.split("_")[1]) for name in os.listdir(directory)
+                   if name.startswith("step_"))
+    if not steps:
+        raise FileNotFoundError(f"no checkpoints in {directory}")
+    return steps[-1]
+
+
+def model_from_numpy(arrays: dict[str, np.ndarray], meta: dict,
+                     device) -> model_mod.GeekModel:
+    """Build a GeekModel on ``device`` from host arrays and metadata.
+
+    ``arrays`` holds the canonical fields (``model.ARRAY_FIELDS``) and
+    any ``transform_``-prefixed leaves; ``meta`` is the manifest's
+    ``extra`` blob (``{"meta": ..., "transform": ...}``).
+    """
+    dev = resolve_device(device)
+    transform = None
+    if meta.get("transform") is not None:
+        prefix = "transform_"
+        tarrays = {k[len(prefix):]: v for k, v in arrays.items()
+                   if k.startswith(prefix)}
+        transform = transform_mod.transform_from(meta["transform"], tarrays)
+    m = meta["meta"]
+
+    def t(name):
+        return torch.as_tensor(np.asarray(arrays[name]), device=dev)
+
+    return model_mod.build_model(
+        t("centers").to(torch.float32), t("center_valid").to(torch.bool),
+        t("k_star").to(torch.int32), t("radius").to(torch.float32),
+        metric=m["metric"], impl=m["impl"], code_bits=m["code_bits"],
+        assign_block=m["assign_block"], use_pallas=m["use_pallas"],
+        transform=transform, bucketer_id=m.get("bucketer_id", ""),
+        seeder_id=m.get("seeder_id", ""),
+        index_tables=m.get("index_tables", 8),
+        index_bucket=m.get("index_bucket", 32))
+
+
+def restore_model(directory: str, *, step: int | None = None,
+                  device=None) -> model_mod.GeekModel:
+    """Rebuild a GeekModel from ``save_model`` files, either package's.
+
+    ``device`` as in ``GEEK``: ``None`` is ``cuda``, ``"cpu"`` the plain
+    path. Pre-transform checkpoints (no "fields" in the manifest) read
+    the canonical fields in sorted order.
+    """
+    if step is None:
+        step = _latest_step(directory)
+    path = _step_dir(directory, step)
+    with open(os.path.join(path, "manifest.json")) as fh:
+        manifest = json.load(fh)
+    extra = manifest.get("extra") or {}
+    if extra.get("kind") != "geek_model":
+        raise ValueError(f"{directory} does not hold a GeekModel checkpoint")
+    fields = extra.get("fields") or sorted(model_mod.ARRAY_FIELDS)
+    if len(fields) != len(manifest["leaves"]):
+        raise ValueError(f"{path}: {len(fields)} fields but "
+                         f"{len(manifest['leaves'])} leaves")
+    arrays = {f: np.load(os.path.join(path, leaf["file"]))
+              for f, leaf in zip(fields, manifest["leaves"])}
+    return model_from_numpy(arrays, extra, device)

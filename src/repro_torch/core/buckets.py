@@ -1,0 +1,62 @@
+"""Unified bucket format (paper §3.1), the dense part of
+``repro.core.buckets``.
+
+A ``BucketTables`` is T hash tables over the same n objects. In table t,
+object ``ids[t, p]`` lives in bucket ``segments[t, p]`` (dense per-table
+index, ascending along p). The flattened view is table-major, so its
+global segment ids ascend and every bucket is one contiguous run: the
+property that lets SILK hash the buckets over CSR offsets.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+
+class BucketTables(NamedTuple):
+    """T LSH hash tables over the same n objects (see module docstring)."""
+
+    ids: torch.Tensor          # (T, n) int32 — data ids, sorted by bucket
+    segments: torch.Tensor     # (T, n) int32 — dense bucket index in table
+    num_buckets: torch.Tensor  # (T,)  int32 — # non-empty buckets per table
+    buckets_per_table: int     # static cap on buckets per table
+
+    @property
+    def num_tables(self) -> int:
+        """Number of hash tables T."""
+        return self.ids.shape[0]
+
+    @property
+    def n(self) -> int:
+        """Number of objects per table."""
+        return self.ids.shape[1]
+
+    @property
+    def total_bucket_cap(self) -> int:
+        """Static cap on global bucket ids: T · buckets_per_table."""
+        return self.num_tables * self.buckets_per_table
+
+    def flatten(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(T·n,) ids and *global* segment ids (table offset applied)."""
+        T = self.num_tables
+        offs = (torch.arange(T, dtype=torch.int32, device=self.ids.device)
+                * self.buckets_per_table)[:, None]
+        return self.ids.reshape(-1), (self.segments + offs).reshape(-1)
+
+
+def partition_even(h: torch.Tensor, t: int) -> BucketTables:
+    """Algorithm 1: sort each hash table, evenly partition into t buckets.
+
+    h: (n, m) QALSH values. Bucket of the rank-r object is floor(r·t/n).
+    The sort is stable, as ``jnp.argsort`` is: ties keep id order.
+    """
+    n, m = h.shape
+    order = torch.argsort(h, dim=0, stable=True)              # (n, m)
+    ranks = torch.arange(n, dtype=torch.int64, device=h.device)
+    seg = (ranks * t // n).to(torch.int32)                   # (n,)
+    ids = order.T.to(torch.int32).contiguous()               # (m, n)
+    segments = seg.expand(m, n)
+    return BucketTables(ids, segments,
+                        torch.full((m,), t, dtype=torch.int32, device=h.device),
+                        t)

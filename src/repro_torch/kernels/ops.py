@@ -1,0 +1,40 @@
+"""Device dispatch for the kernels, and nothing else.
+
+A CUDA tensor launches the hand-written kernel, which raises if it
+cannot run; there is no fallback. A CPU tensor takes the plain PyTorch
+version. (The reference's ops fall back quietly to jnp on a GPU; the
+port does not.)
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import distance_argmin as _da
+from repro_torch.kernels import minhash_buckets as _mh
+from repro_torch.kernels import ref as _ref
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    return t.device.type == "cpu"
+
+
+def distance_argmin_l2(x, centers, center_valid, *, block: int = 4096):
+    """(labels, squared distances); ``block`` rows per step on the CPU."""
+    if _on_cpu(x):
+        from repro_torch.core.assign import assign_l2
+        return assign_l2(x, centers, center_valid, block=block)
+    return _da.distance_argmin_l2(x, centers, center_valid)
+
+
+def minhash_segments(ids_flat, offsets, keys):
+    """Bucket MinHash over CSR segments: (S,) uint32 in the int64 carrier."""
+    if _on_cpu(ids_flat):
+        return _ref.minhash_segments_ref(ids_flat, offsets, keys)
+    return _mh.minhash_segments(ids_flat, offsets, keys)
+
+
+def minhash_even_buckets(ids, keys):
+    """Bucket MinHash over (nb, bsz) rows: (nb,) uint32 in the carrier."""
+    if _on_cpu(ids):
+        return _ref.minhash_even_buckets_ref(ids, keys)
+    return _mh.minhash_even_buckets(ids, keys)

@@ -1,0 +1,42 @@
+"""Plain PyTorch versions of the kernels: the ground truth they are held
+to, and the CPU path (the counterpart of ``repro.kernels.ref``)."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.lsh import minhash_over_segments
+from repro_torch.utils.hashing import hash_u32, mix_u32
+
+
+def distance_argmin_l2_ref(x, centers, center_valid):
+    """(labels int32, squared distances clamped >= 0) in float32."""
+    x = x.to(torch.float32)
+    centers = centers.to(torch.float32)
+    d2 = (torch.sum(x * x, -1, keepdim=True) - 2.0 * (x @ centers.T)
+          + torch.sum(centers * centers, -1)[None, :])
+    d2 = torch.where(center_valid[None, :], d2, torch.finfo(torch.float32).max)
+    mind, lab = torch.min(d2, dim=-1)
+    return lab.to(torch.int32), torch.clamp(mind, min=0.0)
+
+
+def minhash_even_buckets_ref(ids, keys):
+    """ids: (nb, bsz) int32, keys: (K, 2) uint32 -> (nb,) uint32, all
+    uint32 in the int64 carrier."""
+    sig = torch.zeros((ids.shape[0],), dtype=torch.int64, device=ids.device)
+    for k in range(keys.shape[0]):
+        h = hash_u32(ids, keys[k, 0], keys[k, 1])
+        sig = mix_u32(sig, torch.min(h, dim=-1).values)
+    return sig
+
+
+def minhash_segments_ref(ids_flat, offsets, keys):
+    """CSR segments (``offsets`` (S+1,)) -> (S,) signatures: the segment
+    MinHash of ``core.lsh.minhash_over_segments``, reading only
+    ``ids_flat[offsets[0]:offsets[-1]]`` as the kernel does."""
+    S = offsets.shape[0] - 1
+    pos = torch.arange(ids_flat.shape[0], device=ids_flat.device,
+                       dtype=offsets.dtype)
+    seg = torch.searchsorted(offsets, pos, right=True) - 1
+    inside = (seg >= 0) & (seg < S)
+    return minhash_over_segments(ids_flat, seg.clamp(0, max(S - 1, 0)), S,
+                                 keys, valid=inside)

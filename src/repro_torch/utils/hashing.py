@@ -1,0 +1,73 @@
+"""32-bit universal hashing primitives used by MinHash / SILK.
+
+The counterpart of ``repro.utils.hashing``. PyTorch on the CPU has no
+uint32 add, shift or min, so every uint32 value here travels in an
+int64 tensor holding a value in [0, 2**32): each ``*`` and ``+`` is
+followed by ``& M32``. The int64 product may wrap, but its low 32 bits
+are the uint32 product's, and since every carried value is
+non-negative, sort and min keep unsigned order.
+"""
+from __future__ import annotations
+
+import torch
+
+M32 = 0xFFFFFFFF
+UMAX32 = M32
+
+
+def derive_hash_keys(gen: torch.Generator, shape: tuple[int, ...]
+                     ) -> torch.Tensor:
+    """Draw (..., 2) uint32 (a, b) multiply-add keys; ``a`` is forced odd.
+
+    Drawn from ``gen`` on its device; returned in the int64 carrier.
+    """
+    bits = torch.randint(0, 1 << 32, tuple(shape) + (2,), generator=gen,
+                         device=gen.device, dtype=torch.int64)
+    bits[..., 0] |= 1
+    return bits
+
+
+def hash_u32(x: torch.Tensor, a, b) -> torch.Tensor:
+    """Multiply-add + murmur3-style finalizer, as ``repro``'s ``hash_u32``.
+
+    ``x`` may be int32 ids (reinterpreted as uint32) or carried uint32.
+    """
+    h = ((x.to(torch.int64) & M32) * a + b) & M32
+    h = h ^ (h >> 16)
+    h = (h * 0x7FEB352D) & M32
+    h = h ^ (h >> 15)
+    h = (h * 0x846CA68B) & M32
+    h = h ^ (h >> 16)
+    return h
+
+
+def mix_u32(acc: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Fold ``v`` into running signature ``acc`` (boost-style combine)."""
+    acc = acc.to(torch.int64) & M32
+    v = v.to(torch.int64) & M32
+    return ((acc * 0x01000193) ^ (v + 0x9E3779B9 + (acc << 6) + (acc >> 2))) & M32
+
+
+def combine2_u32(x: torch.Tensor, y: torch.Tensor, a, b) -> torch.Tensor:
+    """Hash a pair (x, y) into uint32, as ``repro``'s ``combine2_u32``."""
+    return hash_u32(hash_u32(x, a, b) ^ (y.to(torch.int64) & M32),
+                    a ^ 0x5851F42D, b)
+
+
+def run_starts(*sorted_keys: torch.Tensor,
+               valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Boolean start-of-run markers over jointly sorted key arrays.
+
+    A run is a maximal block of equal (key_0, ..., key_m) tuples. Invalid
+    entries (sorted to the end by the caller) never start a run.
+    """
+    neq = None
+    for k in sorted_keys:
+        d = torch.ones_like(k, dtype=torch.bool)
+        d[1:] = k[1:] != k[:-1]
+        neq = d if neq is None else (neq | d)
+    if valid is not None:
+        prev_valid = torch.zeros_like(valid)
+        prev_valid[1:] = valid[:-1]
+        neq = (neq | ~prev_valid) & valid
+    return neq

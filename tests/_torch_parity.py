@@ -1,0 +1,95 @@
+"""Shared helpers for the PyTorch port's parity tests (``test_torch_*``).
+
+Inputs are made with numpy from a seed and handed to both packages as
+arrays; uint32 values cross as numpy uint32 and enter the port in its
+int64 carrier.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch as rt
+
+
+@pytest.fixture
+def cuda_device():
+    """The card, or a skip with the reason (decided here, at run time)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the hand-written kernels run only "
+                    "on the card")
+    return torch.device("cuda")
+
+
+def u32(t) -> np.ndarray:
+    """A port carrier tensor (or any integer array) as numpy uint32."""
+    if isinstance(t, torch.Tensor):
+        t = t.cpu().numpy()
+    return (np.asarray(t).astype(np.int64) & 0xFFFFFFFF).astype(np.uint32)
+
+
+def carrier(a) -> torch.Tensor:
+    """numpy/JAX uint32 -> the port's int64 carrier."""
+    return torch.from_numpy(np.asarray(a).astype(np.uint32).astype(np.int64))
+
+
+def near_ties(x, centers, valid, lab_a, lab_b, rtol: float = 1e-5):
+    """Split rows whose labels differ into (near_ties, disagreements).
+
+    A row is a near-tie when, in float64, its distances to the two
+    labelled centers differ by at most ``rtol·(‖x‖² + max‖c‖²)``: about
+    170 float32 ulps of the expansion ‖x‖² − 2x·c + ‖c‖², well above the
+    rounding of either side, far below any real gap.
+    """
+    x64 = np.asarray(x, np.float64)
+    c64 = np.asarray(centers, np.float64)
+    lab_a, lab_b = np.asarray(lab_a), np.asarray(lab_b)
+    rows = np.flatnonzero(lab_a != lab_b)
+    if rows.size == 0:
+        return rows, rows
+    da = ((x64[rows] - c64[lab_a[rows]]) ** 2).sum(1)
+    db = ((x64[rows] - c64[lab_b[rows]]) ** 2).sum(1)
+    scale = (x64[rows] ** 2).sum(1) + (c64[np.asarray(valid)] ** 2).sum(1).max()
+    near = np.abs(da - db) <= rtol * scale
+    return rows[near], rows[~near]
+
+
+def assert_labels_match(x, centers, valid, lab_ref, lab_port, what: str,
+                        max_ties: int | None = None):
+    """Labels equal except at near-ties, which are counted and named."""
+    ties, bad = near_ties(x, centers, valid, lab_ref, lab_port)
+    if ties.size:
+        print(f"{what}: {ties.size} near-tie rows {ties.tolist()[:20]}")
+    assert bad.size == 0, f"{what}: labels disagree beyond near-ties at " \
+                          f"rows {bad.tolist()[:20]}"
+    if max_ties is not None:
+        assert ties.size <= max_ties, f"{what}: {ties.size} near-ties"
+    return ties.size
+
+
+@dataclasses.dataclass(frozen=True)
+class InjectedBucketer(rt.LSHBucketer):
+    """The stock bucketer with the fit's draws replaced by given arrays
+    (the reference's JAX-drawn ``a`` and SILK table keys)."""
+
+    a: Any = None
+    table_keys: Any = None
+
+    def split_key(self, kind, gen, d, cfg):
+        return (self.a,), self.table_keys
+
+
+def jax_draws(key, d: int, cfg):
+    """The reference's in-core dense draws for ``key``: (a, table_keys)
+    as numpy, exactly as ``repro``'s LSHBucketer / silk_seeding make them."""
+    import jax
+    from repro.core import lsh
+    from repro.utils.hashing import derive_hash_keys
+    k_proj, k_silk = jax.random.split(key)
+    a = np.asarray(lsh.qalsh_projections(k_proj, d, cfg.m))
+    keys = np.asarray(derive_hash_keys(k_silk, (cfg.silk_l + 1, cfg.silk_k)))
+    return a, keys

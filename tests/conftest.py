@@ -60,3 +60,9 @@ except ImportError:
 @pytest.fixture(scope="session")
 def rng():
     return jax.random.PRNGKey(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (the port's hand-written "
+        "kernels); skips with a reason where there is none")

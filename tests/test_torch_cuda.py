@@ -1,0 +1,131 @@
+"""The port's hand-written CUDA kernels against their plain versions.
+
+Every test here needs the card (marker ``cuda``) and skips with a reason
+without one. The file imports no JAX, so it also runs on a machine with
+the card and no JAX::
+
+    PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
+"""
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch as rt
+from _torch_parity import (InjectedBucketer, assert_labels_match,  # noqa: F401
+                           carrier, cuda_device, u32)
+from repro_torch.kernels import distance_argmin as tda
+from repro_torch.kernels import minhash_buckets as tmh
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+
+pytestmark = pytest.mark.cuda
+
+FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                       "geek_ref_dense")
+L2_SHAPES = [(64, 8, 16), (130, 33, 70), (257, 128, 128), (100, 5, 960)]
+
+
+def _keys(rng, K):
+    k = rng.integers(0, 2**32, (K, 2), dtype=np.uint64).astype(np.uint32)
+    k[:, 0] |= 1
+    return carrier(k)
+
+
+@pytest.mark.parametrize("nb,bsz,K", [(10, 8, 1), (100, 64, 3), (33, 17, 5)])
+def test_minhash_kernel_bit_exact(cuda_device, nb, bsz, K):
+    rng = np.random.default_rng(nb)
+    ids = torch.from_numpy(rng.integers(0, 2**31 - 1, (nb, bsz)).astype(np.int32))
+    keys = _keys(rng, K)
+    before = tmh.minhash_segments.launches
+    got = tmh.minhash_even_buckets(ids.to(cuda_device), keys.to(cuda_device))
+    assert tmh.minhash_segments.launches == before + 1
+    np.testing.assert_array_equal(u32(got),
+                                  u32(tops.minhash_even_buckets(ids, keys)))
+
+
+def test_minhash_kernel_ragged_csr_bit_exact(cuda_device):
+    rng = np.random.default_rng(0)
+    sizes = rng.integers(0, 70, 301)
+    sizes[::4] = 0                                     # empty segments
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
+    ids = rng.integers(0, 10**6, int(offsets[-1])).astype(np.int32)
+    keys = _keys(rng, 3)
+    got = tmh.minhash_segments(torch.from_numpy(ids).to(cuda_device),
+                               torch.from_numpy(offsets).to(cuda_device),
+                               keys.to(cuda_device))
+    want = tops.minhash_segments(torch.from_numpy(ids),
+                                 torch.from_numpy(offsets), keys)
+    np.testing.assert_array_equal(u32(got), u32(want))
+
+
+@pytest.mark.parametrize("n,k,d", L2_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_l2_kernel_matches_plain(cuda_device, n, k, d, dtype):
+    rng = np.random.default_rng(n + k + d)
+    x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+    c = torch.from_numpy(rng.standard_normal((k, d)).astype(np.float32))
+    valid = torch.arange(k) % 7 != 3
+    tx, tc = x.to(cuda_device, dtype), c.to(cuda_device, dtype)
+    kl, kd = tda.distance_argmin_l2(tx, tc, valid.to(cuda_device))
+    pl, pd = tref.distance_argmin_l2_ref(tx, tc, valid.to(cuda_device))
+    xf, cf = tx.float().cpu().numpy(), tc.float().cpu().numpy()
+    assert_labels_match(xf, cf, valid.numpy(), pl.cpu().numpy(),
+                        kl.cpu().numpy(), f"kernel {n}x{k}x{d} {dtype}")
+    # d² within 1e-5 of the expansion's scale (see _torch_parity.near_ties)
+    scale = (xf * xf).sum(1) + (cf[valid.numpy()] ** 2).sum(1).max()
+    assert np.all(np.abs(kd.cpu().numpy() - pd.cpu().numpy()) <= 1e-5 * scale)
+
+
+def test_l2_kernel_no_valid_center(cuda_device):
+    x = torch.randn(70, 9, device=cuda_device)
+    c = torch.randn(5, 9, device=cuda_device)
+    lab, d2 = tda.distance_argmin_l2(x, c, torch.zeros(5, dtype=torch.bool,
+                                                       device=cuda_device))
+    assert int(lab.abs().max()) == 0
+    assert bool((d2 == torch.finfo(torch.float32).max).all())
+
+
+def test_fit_on_card_matches_cpu_fit(cuda_device):
+    """Same injected draws: the card's fit (both kernels) gives the CPU
+    fit's seeds bit for bit and its labels except at near-ties."""
+    rng = np.random.default_rng(0)
+    centers = rng.standard_normal((8, 32))
+    x = (centers[rng.integers(0, 8, 2000)]
+         + 0.08 * rng.standard_normal((2000, 32))).astype(np.float32)
+    x = np.round(x * 16) / 16         # exact products: identical ranks
+    a = torch.from_numpy(np.round(rng.standard_normal((32, 16)) * 64) / 64
+                         ).float()
+    cfg = rt.GeekConfig(m=16, t=32, k_max=64, pair_cap=1 << 14)
+    keys = _keys(rng, (cfg.silk_l + 1) * cfg.silk_k).reshape(
+        cfg.silk_l + 1, cfg.silk_k, 2)
+    cpu = rt.GEEK(cfg, bucketer=InjectedBucketer(a=a, table_keys=keys),
+                  device="cpu")
+    cpu.fit(rt.DenseData(x), 0)
+    l2, mh = tda.distance_argmin_l2.launches, tmh.minhash_segments.launches
+    card = rt.GEEK(cfg, bucketer=InjectedBucketer(
+        a=a.to(cuda_device), table_keys=keys.to(cuda_device)))
+    card.fit(rt.DenseData(x), 0)
+    assert tda.distance_argmin_l2.launches == l2 + 1
+    assert tmh.minhash_segments.launches == mh + cfg.silk_l
+    cr, gr = cpu.result_, card.result_
+    assert int(gr.k_star) == int(cr.k_star) > 0
+    for f in ("group", "id", "valid"):
+        np.testing.assert_array_equal(getattr(gr.seeds, f).cpu().numpy(),
+                                      getattr(cr.seeds, f).numpy())
+    assert_labels_match(x, cr.centers.numpy(), cr.center_valid.numpy(),
+                        cr.labels.numpy(), gr.labels.cpu().numpy(), "card fit")
+    labels, _ = rt.predict(card.model_, x)
+    assert torch.equal(labels, gr.labels)
+
+
+def test_reference_fixture_on_card(cuda_device):
+    model = rt.restore_model(os.path.join(FIXTURE, "ckpt"))
+    assert model.device.type == "cuda"
+    q = np.load(os.path.join(FIXTURE, "queries.npy"))
+    labels, _ = rt.predict(model, q)
+    assert_labels_match(q, model.centers.cpu().numpy(),
+                        model.center_valid.cpu().numpy(),
+                        np.load(os.path.join(FIXTURE, "labels.npy")),
+                        labels.cpu().numpy(), "fixture on card")
