@@ -4,15 +4,26 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``,
-holds each against its plain PyTorch version on the card, drives the main
-path (``GEEK(cfg).fit(DenseData(x), seed)`` then ``predict``) at the
-ANN_SIFT1M base set's shape (1,000,000 x 128 float32 vectors, generated,
-not downloaded), checks that the path launched both kernels, round-trips
-checkpoints, and reproduces the labels of a model fitted and saved by the
-JAX reference (``tests/data/geek_ref_dense``). Any failure raises and
-exits non-zero. The line before the last is a JSON object with each
-kernel's launches, error, times and bound; the last line is
-``{"ok": true, "device": {...}}``.
+holds each against its plain PyTorch version on the card, and drives the
+three main paths, each with every launch count set to 0 just before it
+and read just after:
+
+- dense: ``GEEK(cfg).fit(DenseData(x), seed)`` then ``predict`` at the
+  ANN_SIFT1M base set's shape (1,000,000 x 128 float32), L2 kernel;
+- heterogeneous: ``fit(HeteroData(x_num, x_cat), seed)`` then predict on
+  GeoNames-shaped rows (2,000,000 x (5 numeric + 4 categorical)),
+  equality Hamming kernel;
+- sparse: ``fit(SparseData(sets, mask), seed)`` then predict on sets
+  shaped after the UCI URL Reputation set (2,396,130 sets of 116 items
+  from 3,231,961 features), 16-bit packed Hamming kernel;
+
+the SILK bucket MinHash kernel on all three. All data is generated from
+a seed, not downloaded. It checks that each path launched its kernels,
+round-trips checkpoints, and reproduces the labels of models fitted and
+saved by the JAX reference (``tests/data/geek_ref_{dense,hetero,sparse}``).
+Any failure raises and exits non-zero. The line before the last is a
+JSON object with each kernel's launches, error, times and bound; the
+last line is ``{"ok": true, "device": {...}}``.
 
 Imports only torch, numpy, the standard library and ``repro_torch``.
 """
@@ -27,16 +38,42 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-FIXTURE = os.path.join(ROOT, "tests", "data", "geek_ref_dense")
+DATA = os.path.join(ROOT, "tests", "data")
+FIXTURE = os.path.join(DATA, "geek_ref_dense")
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): float32 outside the tensor
 # cores, and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# 32-bit integer add/logic/shift/compare per clock per SM, and __popc
+# (CUDA C++ Programming Guide, throughput table, compute capability 9.0);
+# times the SM count and the SM clock read from the card
+INT32_PER_CLK, POPC_PER_CLK = 64, 16
+# The fewest of those a Hamming function needs: per field width b, the
+# 32-bit integer ops and __popc per packed word to count the non-zero
+# b-bit fields of z = a ^ c into a row's total, each op counted once and
+# three-input logic as one LOP3. b = 1: xor, add (+ popc); b = 2: xor,
+# shift, LOP3 ((z | z >> 1) & lsb), add (+ popc); b = 4-16: the SWAR zero
+# test t = (z & low) + low, LOP3 ((t | z) & high), i.e. xor, and, add,
+# LOP3, add (+ popc); b = 32: xor, compare, add. The equality function
+# needs a compare and an add per column. Both keep a running minimum: a
+# compare and a select per (row, center).
+PACKED_OPS = {1: (2, 1), 2: (4, 1), 4: (5, 1), 8: (5, 1), 16: (5, 1),
+              32: (3, 0)}
 
 N_FIT, N_FRESH, D, K_TRUE = 1_000_000, 65_536, 128, 64
 L2_SHAPES = [(64, 8, 16), (130, 33, 70), (257, 128, 128), (100, 5, 960)]
 MH_SHAPES = [(10, 8, 1), (100, 64, 3), (33, 17, 5)]
+# the reference's Hamming sweeps (tests/test_kernels.py), then wider ones
+HAM_SHAPES = [(50, 4, 9, 5), (129, 17, 45, 20), (64, 8, 400, 1 << 15),
+              (20_000, 1024, 9, 12), (5_000, 1024, 64, 1 << 16)]
+PACKED_SHAPES = [(50, 4, 9, 4), (129, 17, 45, 8), (64, 8, 400, 16),
+                 (33, 70, 7, 2)] + [(3_000, 300, 64, b)
+                                    for b in (1, 2, 4, 8, 16, 32)]
+# GeoNames-shaped rows (the gazetteer has ~12M; cut for the smoke's time)
+N_HET, K_HET = 2_000_000, 32
+# the UCI URL Reputation set's rows, features and mean non-zeros
+N_URL, U_URL, NNZ_URL, K_URL = 2_396_130, 3_231_961, 116, 32
 # d² tolerance, relative to the expansion's scale ‖x‖² + max‖c‖²: about
 # 170 float32 ulps, above either side's rounding, far below a real gap
 L2_RTOL = 1e-5
@@ -81,10 +118,95 @@ def l2_agreement(x, c, valid, kernel, plain):
     return int(rows.numel()), float(err.max())
 
 
-def purity(labels, truth, k_max):
-    joint = torch.bincount(labels.long() * K_TRUE + truth.long(),
-                           minlength=k_max * K_TRUE).view(k_max, K_TRUE)
+def purity(labels, truth, k_max, k_true=K_TRUE):
+    joint = torch.bincount(labels.long() * k_true + truth.long(),
+                           minlength=k_max * k_true).view(k_max, k_true)
     return float(joint.max(1).values.sum()) / labels.numel()
+
+
+def smi(query):
+    """One ``nvidia-smi --query-gpu`` field list for card 0, as
+    ``--format=csv,noheader`` prints it."""
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def bound(nbytes, op_times):
+    """(bound ms, "bytes" or "operations"): the larger of the bytes over
+    the memory rate and the longest of the operation times (seconds)."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES, max(op_times)
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
+def reset_launches(*kernels):
+    for k in kernels:
+        k.launches = 0
+
+
+def ham_exact(kernel_out, plain_out, what):
+    """Raise unless labels and counts are equal; return max |Δcount| (0)."""
+    (lk, ck), (lp, cp) = kernel_out, plain_out
+    cp = cp.to(torch.int32)
+    if not (torch.equal(lk, lp) and torch.equal(ck, cp)):
+        bad = ((lk != lp) | (ck != cp)).nonzero().flatten()
+        raise AssertionError(f"{what}: kernel differs from plain at rows "
+                             f"{bad[:10].tolist()}")
+    return float((ck - cp).abs().max()) if ck.numel() else 0.0
+
+
+def code_path(kernels, name, est, fit_data, fresh_data, truth_fit,
+              truth_fresh, k_true, path_kernel):
+    """Drive one code-space main path with every count reset just before
+    and read just after; check it. Returns (model, launches, fit s)."""
+    reset_launches(*kernels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = est.fit(fit_data, 0)
+    res = est.result_
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launch = {k.__name__: k.launches for k in kernels}
+    t0 = time.perf_counter()
+    lab_fit, _ = est.predict(fit_data)
+    torch.cuda.synchronize()
+    pred_fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lab_new, dist_new = est.predict(fresh_data)
+    torch.cuda.synchronize()
+    pred_new_s = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    k_star, overflow = int(res.k_star), int(res.overflow)
+    n_fit, n_new = lab_fit.numel(), lab_new.numel()
+    k_max = model.k_max
+    pur_fit = purity(res.labels, truth_fit, k_max, k_true)
+    pur_new = purity(lab_new, truth_fresh, k_max, k_true)
+    print(f"  fit {fit_s:.3f} s: k*={k_star}, overflow={overflow}, impl "
+          f"{model.impl} ({model.code_bits} bits), launches {fit_launch}")
+    print(f"  predict (encode + assign): fit rows {n_fit / pred_fit_s:,.0f} "
+          f"points/s, fresh rows {n_new / pred_new_s:,.0f} points/s; "
+          f"launches after fit and predicts {launches}")
+    print(f"  purity {pur_fit:.4f} (fit), {pur_new:.4f} (fresh); peak device "
+          f"memory {peak_gb:.2f} GiB")
+    if k_star <= 0 or overflow != 0:
+        raise AssertionError(f"{name}: k*={k_star}, overflow={overflow}")
+    if not torch.equal(lab_fit, res.labels):
+        raise AssertionError(f"{name}: predict on the fit rows differs from "
+                             "the fit")
+    mh = fit_launch["minhash_segments"]
+    if mh < est.cfg.silk_l or fit_launch[path_kernel.__name__] < 1:
+        raise AssertionError(f"{name}: fit launched {fit_launch}")
+    if launches[path_kernel.__name__] < fit_launch[path_kernel.__name__] + 2:
+        raise AssertionError(f"{name}: predict did not launch "
+                             f"{path_kernel.__name__}")
+    if not bool(torch.isfinite(dist_new).all()) or \
+            int(lab_new.min()) < 0 or int(lab_new.max()) >= k_max:
+        raise AssertionError(f"{name}: bad fresh-row labels or distances")
+    return model, launches, fit_s
 
 
 def main():
@@ -95,10 +217,15 @@ def main():
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import repro_torch as rt
     from repro_torch.data.synthetic import sift_like
+    from repro_torch.core import assign
+    from repro_torch.data.synthetic import geonames_like, url_like
     from repro_torch.kernels import build
     from repro_torch.kernels import distance_argmin as da
+    from repro_torch.kernels import distance_argmin_hamming as dh
     from repro_torch.kernels import minhash_buckets as mh
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import pack, ref
+    all_kernels = (da.distance_argmin_l2, dh.distance_argmin_hamming,
+                   dh.distance_argmin_hamming_packed, mh.minhash_segments)
 
     dev = torch.device("cuda")
     # float32 products in full float32: a TF32 x @ a would move QALSH ranks
@@ -112,13 +239,16 @@ def main():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True).stdout
-    card = smi.strip().splitlines()[0]
+    card = smi("name,power.limit")
     print(card)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clk_hz = float(smi("clocks.max.sm").split()[0]) * 1e6      # "1980 MHz"
+    int_rate = INT32_PER_CLK * sms * clk_hz
+    popc_rate = POPC_PER_CLK * sms * clk_hz
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"{torch.cuda.get_device_name(0)}")
+          f"{torch.cuda.get_device_name(0)}, {sms} SMs at {clk_hz / 1e6:.0f} "
+          f"MHz max: {int_rate / 1e12:.2f} T int32 op/s, "
+          f"{popc_rate / 1e12:.2f} T popc/s")
     gen = torch.Generator(device=dev).manual_seed(0)
 
     phase("2 L2 kernel vs plain")
@@ -185,13 +315,11 @@ def main():
     mh_plain_ms = cuda_ms(lambda: ref.minhash_segments_ref(ids, offsets,
                                                            keys), 3)
     mh_bytes = ids.numel() * 4 + offsets.numel() * 4 + keys.numel() * 4 + S * 4
-    # ~10 integer operations per hash (multiply-add, three xor-shifts, two
-    # multiplies) plus a min, K hashes per id; priced at the 32-bit
-    # non-tensor rate
-    mh_ops = ids.numel() * cfg.silk_k * 11
-    mh_bound = max(mh_bytes / PEAK_BYTES, mh_ops / PEAK_F32_FLOPS) * 1e3
-    mh_by = "bytes" if mh_bytes / PEAK_BYTES >= mh_ops / PEAK_F32_FLOPS \
-        else "operations"
+    # 10 integer operations per hash: a multiply-add, three xor-shifts
+    # (shift, xor), two multiplies and a min, K hashes per id; priced at
+    # the 32-bit integer rate
+    mh_ops = ids.numel() * cfg.silk_k * 10
+    mh_bound, mh_by = bound(mh_bytes, [mh_ops / int_rate])
     print(f"  ({S} segments x {bsz} ids, K={cfg.silk_k}): bit-exact; kernel "
           f"{mh_ms:.4f} ms, plain {mh_plain_ms:.3f} ms, bound "
           f"{mh_bound:.4f} ms ({mh_by}: {mh_bytes / 1e6:.1f} MB)")
@@ -199,8 +327,7 @@ def main():
 
     phase("4 main path: GEEK(cfg).fit + predict at 1M x 128")
     print(f"  config {cfg}")
-    da.distance_argmin_l2.launches = 0
-    mh.minhash_segments.launches = 0
+    reset_launches(*all_kernels)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -220,6 +347,7 @@ def main():
     pred_new_s = time.perf_counter() - t0
     launches = {"l2": da.distance_argmin_l2.launches,
                 "minhash": mh.minhash_segments.launches}
+    dense_fit_s = fit_s
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     k_star, overflow = int(res.k_star), int(res.overflow)
     print(f"  fit {fit_s:.3f} s: k*={k_star}, overflow={overflow}, launches "
@@ -284,7 +412,165 @@ def main():
         raise AssertionError("reference fixture labels not reproduced")
     print(f"  reference fixture (k_max={ref_model.k_max}, d={ref_model.d}): "
           f"{q.shape[0]} labels reproduced, near-ties {rows.numel()}")
+    del data, x_fit, x_new, model, res, est, back, lab_fit, lab_new
+    torch.cuda.empty_cache()
 
+    phase("6 Hamming kernels vs plain (bit-exact)")
+    ham_err = packed_err = 0.0
+    for n, k, d, card_ in HAM_SHAPES:
+        codes = torch.randint(0, card_, (n, d), generator=gen, device=dev,
+                              dtype=torch.int32)
+        cen = torch.randint(0, card_, (k, d), generator=gen, device=dev,
+                            dtype=torch.int32)
+        codes[::3] = cen[torch.randint(0, k, (codes[::3].shape[0],),
+                                       generator=gen, device=dev)]
+        for mode in ("some", "none"):
+            valid = (torch.arange(k, device=dev) % 7 != 3) if mode == "some" \
+                else torch.zeros(k, dtype=torch.bool, device=dev)
+            plain = (ref.distance_argmin_hamming_ref(codes, cen, valid)
+                     if n * k * d <= 2**27 else
+                     assign.assign_hamming(codes, cen, valid, block=1024))
+            ham_err = max(ham_err, ham_exact(
+                dh.distance_argmin_hamming(codes, cen, valid), plain,
+                f"equality ({n},{k},{d}) {mode} valid"))
+        print(f"  equality ({n},{k},{d}, card {card_}): bit-exact, with and "
+              "without valid centers")
+    for n, k, d, bits in PACKED_SHAPES:
+        hi = 2**32 if bits == 32 else 1 << bits
+        codes = torch.randint(0, hi, (n, d), generator=gen, device=dev)
+        cen = torch.randint(0, hi, (k, d), generator=gen, device=dev)
+        codes[::3] = cen[0]
+        codes[1] = hi - 1
+        xp, cp = pack.pack_codes(codes, bits), pack.pack_codes(cen, bits)
+        if d * bits >= 32 and int(xp.min()) >= 0:
+            raise AssertionError("no packed word has its top bit set")
+        for mode in ("some", "none"):
+            valid = (torch.arange(k, device=dev) % 7 != 3) if mode == "some" \
+                else torch.zeros(k, dtype=torch.bool, device=dev)
+            for dd in (d, None):
+                plain = ref.distance_argmin_hamming_packed_ref(
+                    xp, cp, valid, bits=bits, d=dd)
+                packed_err = max(packed_err, ham_exact(
+                    dh.distance_argmin_hamming_packed(xp, cp, valid, bits=bits,
+                                                      d=dd), plain,
+                    f"packed ({n},{k},{d}) {bits} bits {mode} valid"))
+            eq = ref.distance_argmin_hamming_ref(codes, cen, valid)
+            ham_exact(dh.distance_argmin_hamming_packed(xp, cp, valid,
+                                                        bits=bits, d=d), eq,
+                      f"packed vs equality ({n},{k},{d}) {bits} bits")
+        print(f"  packed ({n},{k},{d}, {bits} bits): bit-exact, with and "
+              "without valid centers")
+
+    phase(f"7 heterogeneous main path: fit + predict at {N_HET:,} x (5 + 4)")
+    het_cfg = rt.GeekConfig(pair_cap=1 << 24)
+    print(f"  config {het_cfg}")
+    h = geonames_like(gen, n=N_HET + N_FRESH, k=K_HET)
+    het_fit = rt.HeteroData(h.x_num[:N_HET], h.x_cat[:N_HET])
+    het_est = rt.GEEK(het_cfg)
+    het_model, het_launch, het_fit_s = code_path(
+        all_kernels, "hetero", het_est, het_fit,
+        rt.HeteroData(h.x_num[N_HET:], h.x_cat[N_HET:]),
+        h.true_labels[:N_HET], h.true_labels[N_HET:], K_HET,
+        dh.distance_argmin_hamming)
+    # the equality kernel at the path's own inputs: the coded fit rows and
+    # the fitted modes (k* of k_max valid: the work the data needs)
+    codes = het_model.encode(h.x_num[:N_HET], h.x_cat[:N_HET])
+    cen, cv = het_model.centers, het_model.center_valid
+    ham_err = max(ham_err, ham_exact(
+        dh.distance_argmin_hamming(codes, cen, cv),
+        assign.assign_hamming(codes, cen, cv), "equality at the main path"))
+    eq_ms = cuda_ms(lambda: dh.distance_argmin_hamming(codes, cen, cv), 10)
+    eq_plain_ms = cuda_ms(lambda: assign.assign_hamming(codes, cen, cv), 1)
+    eq_lib_ms = cuda_ms(lambda: torch.cdist(codes.float(), cen.float(), p=0),
+                        3)
+    kv, (n_, d_) = int(cv.sum()), codes.shape
+    # per (row, valid center): d compares + d adds and the running min
+    # (PACKED_OPS); each input read once, labels and counts written
+    eq_bound, eq_by = bound(4.0 * (n_ * d_ + cen.numel() + cv.numel() + 2 * n_),
+                            [n_ * kv * (2 * d_ + 2) / int_rate])
+    print(f"  equality kernel at ({n_},{cen.shape[0]},{d_}), {kv} valid: "
+          f"bit-exact vs plain; kernel {eq_ms:.3f} ms, plain (blocked) "
+          f"{eq_plain_ms:.3f} ms, cdist(p=0) {eq_lib_ms:.3f} ms, bound "
+          f"{eq_bound:.3f} ms ({eq_by})")
+    del codes, h, het_fit
+    torch.cuda.empty_cache()
+
+    phase(f"8 sparse main path: fit + predict at {N_URL:,} sets x {NNZ_URL}")
+    url_cfg = rt.GeekConfig(pair_cap=1 << 22)
+    print(f"  config {url_cfg}")
+    u = url_like(gen, n=N_URL + N_FRESH, k=K_URL, nnz=NNZ_URL, universe=U_URL)
+    url_fit = rt.SparseData(u.sets[:N_URL], u.mask[:N_URL])
+    url_est = rt.GEEK(url_cfg)
+    url_model, url_launch, url_fit_s = code_path(
+        all_kernels, "sparse", url_est, url_fit,
+        rt.SparseData(u.sets[N_URL:], u.mask[N_URL:]),
+        u.true_labels[:N_URL], u.true_labels[N_URL:], K_URL,
+        dh.distance_argmin_hamming_packed)
+    # the packed kernel at the path's own inputs: the fit rows' packed DOPH
+    # codes (int32 words, as predict packs them) and the fitted modes
+    bits, d_ = url_model.code_bits, url_model.d
+    xp = pack.pack_codes(url_model.encode(u.sets[:N_URL], u.mask[:N_URL]),
+                         bits)
+    pcen, cv = url_model.packed_centers, url_model.center_valid
+    packed_err = max(packed_err, ham_exact(
+        dh.distance_argmin_hamming_packed(xp, pcen, cv, bits=bits, d=d_),
+        assign.assign_hamming_packed(xp, pcen, cv, bits=bits, d=d_),
+        "packed at the main path"))
+    pk_ms = cuda_ms(lambda: dh.distance_argmin_hamming_packed(
+        xp, pcen, cv, bits=bits, d=d_), 10)
+    pk_plain_ms = cuda_ms(lambda: assign.assign_hamming_packed(
+        xp, pcen, cv, bits=bits, d=d_), 1)
+    kv, (n_, w_) = int(cv.sum()), xp.shape
+    int_ops, popcs = PACKED_OPS[bits]
+    # per (row, valid center): w words at the fewest ops and __popc a word
+    # needs, plus the running min; each input read once, outputs written
+    pk_bound, pk_by = bound(
+        4.0 * (n_ * w_ + pcen.numel() + cv.numel() + 2 * n_),
+        [n_ * kv * (w_ * int_ops + 2) / int_rate,
+         n_ * kv * w_ * popcs / popc_rate])
+    print(f"  packed kernel at ({n_},{pcen.shape[0]},{w_} words of {bits}-bit "
+          f"fields), {kv} valid: bit-exact vs plain; kernel {pk_ms:.3f} ms, "
+          f"plain (blocked) {pk_plain_ms:.3f} ms, bound {pk_bound:.3f} ms "
+          f"({pk_by}); no single library call computes it")
+    del xp, url_fit
+
+    phase("9 code-space checkpoints")
+    for name, est_, m_, q in (
+            ("hetero", het_est, het_model, rt.HeteroData(
+                *geonames_like(gen, n=4096, k=K_HET)[:2])),
+            ("sparse", url_est, url_model, rt.SparseData(
+                *url_like(gen, n=4096, k=K_URL, nnz=NNZ_URL,
+                          universe=U_URL)[:2]))):
+        with tempfile.TemporaryDirectory() as tmp:
+            rt.save_model(tmp, m_)
+            back = rt.restore_model(tmp)
+            if back.centers.dtype != torch.int32:
+                raise AssertionError(f"{name}: centers restored as "
+                                     f"{back.centers.dtype}")
+            if not torch.equal(est_.predict(q, model=back)[0],
+                               est_.predict(q)[0]):
+                raise AssertionError(f"{name}: save/restore changed labels")
+        print(f"  {name}: port save_model -> restore_model: labels identical")
+    for name in ("geek_ref_hetero", "geek_ref_sparse"):
+        path = os.path.join(DATA, name)
+        m_ = rt.restore_model(os.path.join(path, "ckpt"))
+        if name == "geek_ref_hetero":
+            got, dist = rt.GEEK(rt.GeekConfig()).predict(rt.HeteroData(
+                np.load(os.path.join(path, "x_num.npy")),
+                np.load(os.path.join(path, "x_cat.npy"))), model=m_)
+        else:
+            got, dist = rt.predict(m_, np.load(os.path.join(path, "codes.npy")))
+        want = torch.from_numpy(np.load(os.path.join(path, "labels.npy")))
+        want_d = torch.from_numpy(np.load(os.path.join(path, "dists.npy")))
+        if not (torch.equal(got.cpu(), want) and torch.equal(dist.cpu(),
+                                                             want_d)):
+            raise AssertionError(f"{name}: reference labels/distances not "
+                                 "reproduced exactly")
+        print(f"  {name} (k_max={m_.k_max}, d={m_.d}, {m_.impl}): "
+              f"{want.numel()} labels and distances reproduced exactly")
+
+    print(f"  fit s: dense {dense_fit_s:.3f}, hetero {het_fit_s:.3f}, "
+          f"sparse {url_fit_s:.3f}")
     kernels = [
         {"name": "distance_argmin_l2", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/distance_argmin.cu",
@@ -292,10 +578,24 @@ def main():
          "launches": launches["l2"], "max_abs_err": l2_err, "ms": l2_ms,
          "plain_ms": l2_plain_ms, "bound_ms": l2_bound, "bound_by": l2_by,
          "library_ms": l2_lib_ms},
+        {"name": "distance_argmin_hamming", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/distance_argmin_hamming.cu",
+         "replaces": "src/repro/kernels/distance_argmin.py:278",
+         "launches": het_launch["distance_argmin_hamming"],
+         "max_abs_err": ham_err, "ms": eq_ms, "plain_ms": eq_plain_ms,
+         "bound_ms": eq_bound, "bound_by": eq_by, "library_ms": eq_lib_ms},
+        {"name": "distance_argmin_hamming_packed", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/distance_argmin_hamming.cu",
+         "replaces": "src/repro/kernels/distance_argmin.py:370",
+         "launches": url_launch["distance_argmin_hamming_packed"],
+         "max_abs_err": packed_err, "ms": pk_ms, "plain_ms": pk_plain_ms,
+         "bound_ms": pk_bound, "bound_by": pk_by, "library_ms": None},
         {"name": "minhash_even_buckets", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/minhash_buckets.cu",
          "replaces": "src/repro/kernels/minhash_buckets.py:58",
-         "launches": launches["minhash"], "max_abs_err": mh_err, "ms": mh_ms,
+         "launches": (launches["minhash"] + het_launch["minhash_segments"]
+                      + url_launch["minhash_segments"]),
+         "max_abs_err": mh_err, "ms": mh_ms,
          "plain_ms": mh_plain_ms, "bound_ms": mh_bound, "bound_by": mh_by,
          "library_ms": None},
     ]

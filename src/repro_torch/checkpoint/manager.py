@@ -25,9 +25,17 @@ from repro_torch.core import model as model_mod
 from repro_torch.core import transform as transform_mod
 from repro_torch.utils.device import resolve_device
 
-#: dtypes of the canonical leaves, as the reference writes them
-_LEAF_DTYPES = {"centers": np.float32, "center_valid": np.bool_,
-                "k_star": np.int32, "radius": np.float32}
+#: dtypes of the canonical leaves, as the reference writes them; centers
+#: are float32 centroids for l2 and int32 mode codes for hamming
+_LEAF_DTYPES = {"center_valid": np.bool_, "k_star": np.int32,
+                "radius": np.float32}
+_CENTER_DTYPES = {"l2": (np.float32, torch.float32),
+                  "hamming": (np.int32, torch.int32)}
+
+
+def _host(t) -> np.ndarray:
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) \
+        else np.asarray(t)
 
 
 def _step_dir(directory: str, step: int) -> str:
@@ -35,14 +43,16 @@ def _step_dir(directory: str, step: int) -> str:
 
 
 def save_model(directory: str, model, *, step: int = 0) -> None:
-    """Persist a fitted GeekModel, readable by ``repro``'s restore_model."""
-    arrays = {f: getattr(model, f).detach().cpu().numpy().astype(
-        _LEAF_DTYPES[f]) for f in model_mod.ARRAY_FIELDS}
+    """Persist a fitted GeekModel, readable by ``repro``'s restore_model
+    (except a sparse model's transform: ``core.transform``)."""
+    dtypes = dict(_LEAF_DTYPES, centers=_CENTER_DTYPES[model.metric][0])
+    arrays = {f: _host(getattr(model, f)).astype(dtypes[f])
+              for f in model_mod.ARRAY_FIELDS}
     tmeta = None
     if model.transform is not None:
         tmeta = transform_mod.transform_meta(model.transform)
         for name, arr in transform_mod.transform_arrays(model.transform).items():
-            arrays["transform_" + name] = np.asarray(arr)
+            arrays["transform_" + name] = _host(arr)
     fields = sorted(arrays)
     extra = {"kind": "geek_model", "meta": model.static_meta(),
              "transform": tmeta, "fields": fields}
@@ -93,14 +103,16 @@ def model_from_numpy(arrays: dict[str, np.ndarray], meta: dict,
         prefix = "transform_"
         tarrays = {k[len(prefix):]: v for k, v in arrays.items()
                    if k.startswith(prefix)}
-        transform = transform_mod.transform_from(meta["transform"], tarrays)
+        transform = transform_mod.transform_from(meta["transform"], tarrays,
+                                                 device=dev)
     m = meta["meta"]
 
     def t(name):
         return torch.as_tensor(np.asarray(arrays[name]), device=dev)
 
     return model_mod.build_model(
-        t("centers").to(torch.float32), t("center_valid").to(torch.bool),
+        t("centers").to(_CENTER_DTYPES[m["metric"]][1]),
+        t("center_valid").to(torch.bool),
         t("k_star").to(torch.int32), t("radius").to(torch.float32),
         metric=m["metric"], impl=m["impl"], code_bits=m["code_bits"],
         assign_block=m["assign_block"], use_pallas=m["use_pallas"],

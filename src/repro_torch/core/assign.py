@@ -1,14 +1,21 @@
-"""Central vectors + one-pass data assignment (paper §3.3), L2 part.
+"""Central vectors + one-pass data assignment (paper §3.3).
 
-The counterpart of ``repro.core.assign``. The O(n·d·k) assignment runs
-through ``kernels.ops.distance_argmin_l2``: the hand-written kernel on
-the card, ``assign_l2`` below (the row-blocked plain version) on the CPU.
+The counterpart of ``repro.core.assign``. Central vectors are centroids
+for dense data and per-attribute modes for hetero and sparse codes. The
+O(n·d·k) assignment runs through ``kernels.ops``: the hand-written
+kernels on the card (L2, equality Hamming, packed Hamming), the
+row-blocked plain versions below on the CPU. The one-hot Hamming path is
+a plain product on every device, as in the reference.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.silk import Seeds
+from repro_torch.core.silk import Seeds, lexsort
+from repro_torch.kernels.pack import field_mismatch_count, onehot_codes
+from repro_torch.utils.hashing import run_starts
+
+INT32_MAX = 2**31 - 1
 
 
 def centroid_centers(x: torch.Tensor, seeds: Seeds
@@ -28,6 +35,52 @@ def centroid_centers(x: torch.Tensor, seeds: Seeds
     sums = torch.segment_reduce(rows, "sum", lengths=cnt_all, axis=0)[:k_max]
     cnt = cnt_all[:k_max].to(x.dtype)
     centers = sums / torch.clamp(cnt, min=1.0)[:, None]
+    return centers, cnt > 0
+
+
+def mode_centers(codes: torch.Tensor, seeds: Seeds, *, attr_chunk: int = 64
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(k_max, d) int32 per-attribute modes + (k_max,) validity, by sorting.
+
+    For each (group, attribute) cell the mode is the value with the most
+    members, ties to the smallest value. Only valid seed slots enter the
+    sort: in the reference invalid slots sort last and count nothing, so
+    leaving them out changes no mode. Attributes go ``attr_chunk`` at a
+    time, fewer when the seed slots are many (at most 2**26 sort keys per
+    chunk); the modes do not depend on the chunking.
+    """
+    k_max = seeds.k_max
+    d = codes.shape[1]
+    dev = codes.device
+    sel = seeds.valid.nonzero().flatten()
+    g = seeds.group[sel].to(torch.int64)                  # (Cv,) in [0, k_max)
+    member_codes = codes[seeds.id[sel].to(torch.int64)].to(torch.int32)
+    cnt = torch.bincount(g, minlength=k_max)[:k_max]
+    cv = g.shape[0]
+    step = max(1, min(attr_chunk, (1 << 26) // max(cv, 1)))
+    out = []
+    for a0 in range(0, d, step):
+        w = min(a0 + step, d) - a0
+        vals = member_codes[:, a0:a0 + w].T.reshape(-1)   # (w*Cv,)
+        cell = (torch.arange(w, dtype=torch.int64, device=dev)[:, None] * k_max
+                + g[None, :]).reshape(-1)                 # attr*k_max + group
+        order = lexsort((vals, cell))
+        cell_s, val_s = cell[order], vals[order]
+        starts = run_starts(cell_s, val_s)
+        run_id = torch.cumsum(starts, 0) - 1
+        run_len = torch.bincount(run_id, minlength=1)
+        run_cnt = torch.where(starts, run_len[run_id], 0)
+        ncells = w * k_max
+        best_cnt = torch.zeros((ncells,), dtype=run_cnt.dtype, device=dev
+                               ).scatter_reduce(0, cell_s, run_cnt, "amax")
+        is_best = starts & (run_cnt == best_cnt[cell_s]) & (run_cnt > 0)
+        mode = torch.full((ncells,), INT32_MAX, dtype=torch.int32, device=dev
+                          ).scatter_reduce(0, cell_s,
+                                           torch.where(is_best, val_s, INT32_MAX),
+                                           "amin")
+        out.append(mode.view(w, k_max).T)                 # (k_max, w)
+    centers = torch.cat(out, dim=1)
+    centers = torch.where((cnt > 0)[:, None], centers, 0)
     return centers, cnt > 0
 
 
@@ -51,6 +104,79 @@ def assign_l2(x: torch.Tensor, centers: torch.Tensor,
         return (torch.empty((0,), dtype=torch.int32, device=x.device),
                 torch.empty((0,), dtype=x.dtype, device=x.device))
     return torch.cat(labels), torch.cat(dists)
+
+
+def _blocked_argmin(dist_of, x: torch.Tensor, big: int, valid: torch.Tensor,
+                    block: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Row blocks of ``dist_of(xb)`` (int (b, k) counts): invalid centers
+    count ``big``; first index on ties. Returns (labels int32, counts as
+    float32), as the reference's jnp paths do."""
+    labels = [torch.empty((0,), dtype=torch.int32, device=x.device)]
+    dists = [torch.empty((0,), dtype=torch.float32, device=x.device)]
+    for r0 in range(0, x.shape[0], block):
+        dist = torch.where(valid[None, :], dist_of(x[r0:r0 + block]), big)
+        mind, lab = torch.min(dist, dim=-1)
+        labels.append(lab.to(torch.int32))
+        dists.append(mind.to(torch.float32))
+    return torch.cat(labels), torch.cat(dists)
+
+
+def assign_hamming(codes: torch.Tensor, centers: torch.Tensor,
+                   center_valid: torch.Tensor, *, block: int = 4096
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Nearest center under attribute-mismatch count (≈ 1 − Jaccard on
+    minwise codes). Invalid centers count d + 1, so with no valid center
+    the label is 0 and the count d + 1. Returns (labels int32, mismatch
+    counts float32)."""
+    d = codes.shape[1]
+
+    def dist_of(xb):
+        return d - (xb[:, None, :] == centers[None, :, :]).sum(
+            dim=-1, dtype=torch.int32)
+
+    return _blocked_argmin(dist_of, codes, d + 1, center_valid, block)
+
+
+def assign_hamming_packed(packed: torch.Tensor, packed_centers: torch.Tensor,
+                          center_valid: torch.Tensor, *, bits: int,
+                          d: int | None = None, block: int = 4096
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``assign_hamming`` on bit-packed codes (``kernels.pack``): XOR +
+    field collapse + popcount over the uint32 words, counts equal
+    to the unpacked path's. Invalid centers count ``d + 1`` when the
+    unpacked width ``d`` is given, else int32 max."""
+    big = INT32_MAX if d is None else d + 1
+
+    def dist_of(xb):
+        z = xb[:, None, :] ^ packed_centers[None, :, :]
+        return field_mismatch_count(z, bits).sum(dim=-1, dtype=torch.int32)
+
+    return _blocked_argmin(dist_of, packed, big, center_valid, block)
+
+
+def assign_hamming_onehot(codes: torch.Tensor, centers: torch.Tensor,
+                          center_valid: torch.Tensor, *, card: int,
+                          block: int = 4096,
+                          centers_onehot: torch.Tensor | None = None
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``assign_hamming`` for low-cardinality codes: matches are
+    ``x1h @ c1h.T`` over one-hot rows.
+
+    The reference multiplies bf16 one-hots with float32 accumulation. A
+    torch bf16 product returns bf16, which holds integers exactly only up
+    to 256, so both sides go to float32 (0 and 1 are exact, and so is
+    every sum below 2**24; TF32 is off, see ``predict``).
+    ``centers_onehot`` is the model's cached one-hot of ``centers``.
+    """
+    d = codes.shape[1]
+    c1h = (onehot_codes(centers, card) if centers_onehot is None
+           else centers_onehot).to(torch.float32)
+
+    def dist_of(xb):
+        matches = onehot_codes(xb, card, dtype=torch.float32) @ c1h.T
+        return d - matches.to(torch.int32)
+
+    return _blocked_argmin(dist_of, codes, d + 1, center_valid, block)
 
 
 def cluster_radius(dists: torch.Tensor, labels: torch.Tensor,

@@ -1,4 +1,4 @@
-"""Unified bucket format (paper §3.1), the dense part of
+"""Unified bucket format (paper §3.1), the counterpart of
 ``repro.core.buckets``.
 
 A ``BucketTables`` is T hash tables over the same n objects. In table t,
@@ -6,6 +6,10 @@ object ``ids[t, p]`` lives in bucket ``segments[t, p]`` (dense per-table
 index, ascending along p). The flattened view is table-major, so its
 global segment ids ascend and every bucket is one contiguous run: the
 property that lets SILK hash the buckets over CSR offsets.
+
+Two construction paths: ``partition_even`` (QALSH rank partition, dense
+data, Algorithm 1) and ``partition_by_signature`` (MinHash (K, L)
+bucketing, hetero and sparse data, Algorithms 2 and 3).
 """
 from __future__ import annotations
 
@@ -60,3 +64,18 @@ def partition_even(h: torch.Tensor, t: int) -> BucketTables:
     return BucketTables(ids, segments,
                         torch.full((m,), t, dtype=torch.int32, device=h.device),
                         t)
+
+
+def partition_by_signature(sigs: torch.Tensor) -> BucketTables:
+    """Algorithms 2 & 3: group objects whose MinHash signatures collide.
+
+    sigs: (L, n) carried uint32. Buckets per table are capped at n, so
+    the flattened tables span L·n global bucket ids, mostly empty. The
+    sort is stable, as ``jnp.argsort`` is: equal signatures keep id order.
+    """
+    n = sigs.shape[1]
+    ss, order = torch.sort(sigs, dim=1, stable=True)
+    starts = torch.ones_like(ss, dtype=torch.int32)
+    starts[:, 1:] = (ss[:, 1:] != ss[:, :-1]).to(torch.int32)
+    seg = torch.cumsum(starts, dim=1, dtype=torch.int32) - 1
+    return BucketTables(order.to(torch.int32), seg, seg[:, -1] + 1, n)

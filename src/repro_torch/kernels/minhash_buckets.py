@@ -23,7 +23,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.utils.hashing import M32
+from repro_torch.utils.hashing import M32, u32_as_i32
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
@@ -37,12 +37,6 @@ def _entry():
     fn = build.load("minhash_buckets").repro_minhash_segments_u32
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     return fn
-
-
-def _u32_bits(t: torch.Tensor) -> torch.Tensor:
-    """uint32 values (int64 carrier, or int32 bits) as int32 bit patterns."""
-    t = t.to(torch.int64) & M32
-    return torch.where(t >= 2**31, t - 2**32, t).to(torch.int32)
 
 
 def minhash_segments(ids_flat: torch.Tensor, offsets: torch.Tensor,
@@ -70,7 +64,7 @@ def minhash_segments(ids_flat: torch.Tensor, offsets: torch.Tensor,
     if not 1 <= K <= MAX_K:
         raise ValueError(f"K={K} outside the kernel's 1..{MAX_K}")
     ids_c, offs_c = ids_flat.contiguous(), offsets.contiguous()
-    keys_c = _u32_bits(keys).contiguous()
+    keys_c = u32_as_i32(keys).contiguous()
     sig = torch.empty((S,), dtype=torch.int32, device=dev)
     if S > 0:
         err = _entry()(ids_c.data_ptr(), offs_c.data_ptr(), S, keys_c.data_ptr(), K,

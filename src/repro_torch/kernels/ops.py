@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import distance_argmin as _da
+from repro_torch.kernels import distance_argmin_hamming as _dh
 from repro_torch.kernels import minhash_buckets as _mh
 from repro_torch.kernels import ref as _ref
 
@@ -24,6 +25,31 @@ def distance_argmin_l2(x, centers, center_valid, *, block: int = 4096):
         from repro_torch.core.assign import assign_l2
         return assign_l2(x, centers, center_valid, block=block)
     return _da.distance_argmin_l2(x, centers, center_valid)
+
+
+def distance_argmin_hamming(codes, centers, center_valid, *,
+                            block: int = 4096):
+    """(labels int32, mismatch counts float32), the contract of
+    ``core.assign.assign_hamming``; ``block`` rows per step on the CPU."""
+    if _on_cpu(codes):
+        from repro_torch.core.assign import assign_hamming
+        return assign_hamming(codes, centers, center_valid, block=block)
+    labels, counts = _dh.distance_argmin_hamming(codes, centers, center_valid)
+    return labels, counts.to(torch.float32)
+
+
+def distance_argmin_hamming_packed(packed, packed_centers, center_valid, *,
+                                   bits: int, d: int | None = None,
+                                   block: int = 4096):
+    """(labels int32, mismatch counts float32), the contract of
+    ``core.assign.assign_hamming_packed``."""
+    if _on_cpu(packed):
+        from repro_torch.core.assign import assign_hamming_packed
+        return assign_hamming_packed(packed, packed_centers, center_valid,
+                                     bits=bits, d=d, block=block)
+    labels, counts = _dh.distance_argmin_hamming_packed(
+        packed, packed_centers, center_valid, bits=bits, d=d)
+    return labels, counts.to(torch.float32)
 
 
 def minhash_segments(ids_flat, offsets, keys):

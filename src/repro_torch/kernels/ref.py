@@ -5,7 +5,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.lsh import minhash_over_segments
+from repro_torch.kernels.pack import packed_hamming
 from repro_torch.utils.hashing import hash_u32, mix_u32
+
+INT32_MAX = 2**31 - 1
 
 
 def distance_argmin_l2_ref(x, centers, center_valid):
@@ -17,6 +20,29 @@ def distance_argmin_l2_ref(x, centers, center_valid):
     d2 = torch.where(center_valid[None, :], d2, torch.finfo(torch.float32).max)
     mind, lab = torch.min(d2, dim=-1)
     return lab.to(torch.int32), torch.clamp(mind, min=0.0)
+
+
+def distance_argmin_hamming_ref(codes, centers, center_valid):
+    """(labels int32, mismatch counts int32); an invalid center counts
+    d + 1, as ``core.assign.assign_hamming`` (the reference's main path)
+    has it. Unblocked: (n, k, d) at once."""
+    d = codes.shape[1]
+    dist = d - (codes[:, None, :] == centers[None, :, :]).sum(
+        -1, dtype=torch.int32)
+    dist = torch.where(center_valid[None, :], dist, d + 1)
+    mind, lab = torch.min(dist, dim=-1)
+    return lab.to(torch.int32), mind
+
+
+def distance_argmin_hamming_packed_ref(packed, packed_centers, center_valid,
+                                       *, bits, d=None):
+    """Packed-domain plain version: XOR + per-field collapse + popcount;
+    an invalid center counts ``d + 1`` (int32 max without ``d``)."""
+    dist = packed_hamming(packed, packed_centers, bits)
+    dist = torch.where(center_valid[None, :], dist,
+                       INT32_MAX if d is None else d + 1)
+    mind, lab = torch.min(dist, dim=-1)
+    return lab.to(torch.int32), mind
 
 
 def minhash_even_buckets_ref(ids, keys):

@@ -15,6 +15,19 @@ M32 = 0xFFFFFFFF
 UMAX32 = M32
 
 
+def u32_as_i32(t: torch.Tensor) -> torch.Tensor:
+    """uint32 values (int64 carrier, or int32 bits) as int32 tensors with
+    the same bit patterns: what a CUDA kernel reads as ``uint32_t``.
+
+    Done by arithmetic, not ``.view``: a carried word >= 2**31 becomes
+    the negative int32 with its bits, on every device.
+    """
+    if t.dtype == torch.int32:
+        return t
+    t = t.to(torch.int64) & M32
+    return torch.where(t >= 2**31, t - 2**32, t).to(torch.int32)
+
+
 def derive_hash_keys(gen: torch.Generator, shape: tuple[int, ...]
                      ) -> torch.Tensor:
     """Draw (..., 2) uint32 (a, b) multiply-add keys; ``a`` is forced odd.

@@ -74,13 +74,20 @@ def assert_labels_match(x, centers, valid, lab_ref, lab_port, what: str,
 @dataclasses.dataclass(frozen=True)
 class InjectedBucketer(rt.LSHBucketer):
     """The stock bucketer with the fit's draws replaced by given arrays
-    (the reference's JAX-drawn ``a`` and SILK table keys)."""
+    (the reference's JAX-drawn ones): ``a`` for dense, ``item_keys`` and
+    ``sig_keys`` for hetero and sparse, ``doph`` for sparse, and the
+    SILK ``table_keys`` for every kind."""
 
     a: Any = None
     table_keys: Any = None
+    item_keys: Any = None
+    sig_keys: Any = None
+    doph: Any = None
 
     def split_key(self, kind, gen, d, cfg):
-        return (self.a,), self.table_keys
+        if kind == "dense":
+            return None, (self.a,), self.table_keys
+        return self.doph, (self.item_keys, self.sig_keys), self.table_keys
 
 
 def jax_draws(key, d: int, cfg):
@@ -93,3 +100,30 @@ def jax_draws(key, d: int, cfg):
     a = np.asarray(lsh.qalsh_projections(k_proj, d, cfg.m))
     keys = np.asarray(derive_hash_keys(k_silk, (cfg.silk_l + 1, cfg.silk_k)))
     return a, keys
+
+
+def jax_code_draws(key, kind: str, cfg) -> dict:
+    """The reference's hetero or sparse draws for ``key`` as numpy
+    uint32, exactly as ``repro``'s LSHBucketer / transforms / SILK
+    derive them: ``item_keys`` (1, 2), ``sig_keys`` (bucket_l, bucket_k,
+    2), ``table_keys`` (silk_l + 1, silk_k, 2) and, for sparse, ``doph``
+    (1, 2)."""
+    import jax
+    from repro.utils.hashing import derive_hash_keys
+    out = {}
+    if kind == "hetero":
+        k_item, k_sig, k_silk = jax.random.split(key, 3)
+    else:
+        k_doph, k_item, k_sig, k_silk = jax.random.split(key, 4)
+        out["doph"] = derive_hash_keys(k_doph, (1,))
+    out["item_keys"] = derive_hash_keys(k_item, (1,))
+    out["sig_keys"] = derive_hash_keys(k_sig, (cfg.bucket_l, cfg.bucket_k))
+    out["table_keys"] = derive_hash_keys(k_silk, (cfg.silk_l + 1, cfg.silk_k))
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+def injected_code_bucketer(draws: dict, device="cpu") -> InjectedBucketer:
+    """An ``InjectedBucketer`` holding ``jax_code_draws``' arrays in the
+    port's int64 carrier on ``device``."""
+    return InjectedBucketer(**{k: carrier(v).to(device)
+                               for k, v in draws.items()})

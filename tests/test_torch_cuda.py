@@ -16,14 +16,16 @@ import repro_torch as rt
 from _torch_parity import (InjectedBucketer, assert_labels_match,  # noqa: F401
                            carrier, cuda_device, u32)
 from repro_torch.kernels import distance_argmin as tda
+from repro_torch.kernels import distance_argmin_hamming as tdh
 from repro_torch.kernels import minhash_buckets as tmh
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import pack as tpack
 from repro_torch.kernels import ref as tref
 
 pytestmark = pytest.mark.cuda
 
-FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
-                       "geek_ref_dense")
+DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+FIXTURE = os.path.join(DATA, "geek_ref_dense")
 L2_SHAPES = [(64, 8, 16), (130, 33, 70), (257, 128, 128), (100, 5, 960)]
 
 
@@ -129,3 +131,128 @@ def test_reference_fixture_on_card(cuda_device):
                         model.center_valid.cpu().numpy(),
                         np.load(os.path.join(FIXTURE, "labels.npy")),
                         labels.cpu().numpy(), "fixture on card")
+
+
+# the shapes of tests/test_kernels.py's Hamming sweeps
+HAM_SHAPES = [(50, 4, 9, 5), (129, 17, 45, 20), (64, 8, 400, 1 << 15),
+              (1000, 1024, 9, 12)]
+PACKED_SHAPES = [(50, 4, 9, 4), (129, 17, 45, 8), (64, 8, 400, 16),
+                 (33, 70, 7, 2), (300, 40, 64, 16)]
+
+
+def _ham(rng, n, k, d, card):
+    codes = rng.integers(0, card, (n, d)).astype(np.int32)
+    c = rng.integers(0, card, (k, d)).astype(np.int32)
+    codes[::3] = c[rng.integers(0, k, len(codes[::3]))]      # exact hits, ties
+    return torch.from_numpy(codes), torch.from_numpy(c)
+
+
+@pytest.mark.parametrize("n,k,d,card", HAM_SHAPES)
+@pytest.mark.parametrize("valid_mode", ["some", "none"])
+def test_hamming_kernel_bit_exact(cuda_device, n, k, d, card, valid_mode):
+    rng = np.random.default_rng(n + k + d)
+    codes, c = _ham(rng, n, k, d, card)
+    valid = (torch.arange(k) % 7 != 3) if valid_mode == "some" \
+        else torch.zeros(k, dtype=torch.bool)
+    before = tdh.distance_argmin_hamming.launches
+    kl, kc = tdh.distance_argmin_hamming(codes.to(cuda_device),
+                                         c.to(cuda_device),
+                                         valid.to(cuda_device))
+    assert tdh.distance_argmin_hamming.launches == before + 1
+    pl, pc = tref.distance_argmin_hamming_ref(codes, c, valid)
+    np.testing.assert_array_equal(kl.cpu().numpy(), pl.numpy())
+    np.testing.assert_array_equal(kc.cpu().numpy(), pc.numpy())
+
+
+@pytest.mark.parametrize("n,k,d,bits", PACKED_SHAPES + [
+    (70, 9, 11, b) for b in (1, 2, 4, 8, 16, 32)])
+def test_hamming_packed_kernel_bit_exact(cuda_device, n, k, d, bits):
+    rng = np.random.default_rng(n * k + bits)
+    hi = 2**32 if bits == 32 else 1 << bits
+    codes = rng.integers(0, hi, (n, d), dtype=np.uint64).astype(np.uint32)
+    c = rng.integers(0, hi, (k, d), dtype=np.uint64).astype(np.uint32)
+    codes[::3] = c[0]
+    codes[1, :] = hi - 1                        # words with the top bit set
+    xp = tpack.pack_codes(carrier(codes), bits)
+    cp = tpack.pack_codes(carrier(c), bits)
+    assert d * bits < 32 or int(xp.min()) < 0
+    valid = torch.arange(k) % 7 != 3
+    for dd in (d, None):
+        kl, kc = tdh.distance_argmin_hamming_packed(
+            xp.to(cuda_device), cp.to(cuda_device), valid.to(cuda_device),
+            bits=bits, d=dd)
+        pl, pc = tref.distance_argmin_hamming_packed_ref(xp, cp, valid,
+                                                         bits=bits, d=dd)
+        np.testing.assert_array_equal(kl.cpu().numpy(), pl.numpy())
+        np.testing.assert_array_equal(kc.cpu().numpy(), pc.numpy())
+    none = torch.zeros(k, dtype=torch.bool, device=cuda_device)
+    kl, kc = tdh.distance_argmin_hamming_packed(
+        xp.to(cuda_device), cp.to(cuda_device), none, bits=bits, d=d)
+    assert int(kl.abs().max()) == 0 and bool((kc == d + 1).all())
+
+
+def _code_fit(kind, device, draws):
+    rng = np.random.default_rng(0)
+    n, k = 3000, 8
+    lab = rng.integers(0, k, n)
+    if kind == "sparse":
+        sets = np.where(rng.random((n, 20)) < 0.9,
+                        rng.integers(0, 10**5, (k, 20))[lab],
+                        rng.integers(0, 10**5, (n, 20))).astype(np.int32)
+        data = rt.SparseData(sets, np.ones((n, 20), bool))
+    else:
+        x_num = (rng.standard_normal((k, 5))[lab]
+                 + 0.05 * rng.standard_normal((n, 5))).astype(np.float32)
+        x_cat = rng.integers(0, 12, (k, 4))[lab].astype(np.int32)
+        data = rt.HeteroData(x_num, x_cat if kind == "hetero" else None)
+    cfg = rt.GeekConfig(bucket_l=8, silk_l=3, k_max=64, pair_cap=1 << 14)
+    est = rt.GEEK(cfg, device=device, bucketer=InjectedBucketer(
+        **{key: v.to(device) for key, v in draws.items()}))
+    est.fit(data, 0)
+    return est, data
+
+
+@pytest.mark.parametrize("kind", ["hetero", "hetero_num", "sparse"])
+def test_code_fit_on_card_bit_identical_to_cpu(cuda_device, kind):
+    """Same injected draws: the card's hetero/sparse fit (MinHash and
+    Hamming kernels) equals the CPU fit bit for bit."""
+    rng = np.random.default_rng(1)
+    draws = {"item_keys": _keys(rng, 1),
+             "sig_keys": _keys(rng, 24).reshape(8, 3, 2),
+             "table_keys": _keys(rng, 12).reshape(4, 3, 2)}
+    if kind == "sparse":
+        draws["doph"] = _keys(rng, 1)
+    cpu, _ = _code_fit(kind, "cpu", draws)
+    kernel = (tdh.distance_argmin_hamming if kind == "hetero"
+              else tdh.distance_argmin_hamming_packed)
+    before, mh = kernel.launches, tmh.minhash_segments.launches
+    card, data = _code_fit(kind, cuda_device, draws)
+    assert kernel.launches == before + 1
+    assert tmh.minhash_segments.launches == mh + 3
+    cr, gr = cpu.result_, card.result_
+    assert int(gr.k_star) == int(cr.k_star) > 0
+    assert int(gr.overflow) == int(cr.overflow) == 0
+    for f in ("labels", "dists", "centers", "center_valid", "radius"):
+        np.testing.assert_array_equal(getattr(gr, f).cpu().numpy(),
+                                      getattr(cr, f).numpy())
+    labels, _ = card.predict(data)
+    assert torch.equal(labels, gr.labels)
+
+
+def test_code_fixtures_on_card(cuda_device):
+    for name in ("geek_ref_hetero", "geek_ref_sparse"):
+        path = os.path.join(DATA, name)
+        model = rt.restore_model(os.path.join(path, "ckpt"))
+        assert model.device.type == "cuda"
+        if name == "geek_ref_hetero":
+            labels, dists = rt.GEEK(rt.GeekConfig()).predict(
+                rt.HeteroData(np.load(os.path.join(path, "x_num.npy")),
+                              np.load(os.path.join(path, "x_cat.npy"))),
+                model=model)
+        else:
+            labels, dists = rt.predict(model,
+                                       np.load(os.path.join(path, "codes.npy")))
+        np.testing.assert_array_equal(labels.cpu().numpy(),
+                                      np.load(os.path.join(path, "labels.npy")))
+        np.testing.assert_array_equal(dists.cpu().numpy(),
+                                      np.load(os.path.join(path, "dists.npy")))
