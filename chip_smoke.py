@@ -17,10 +17,21 @@ and read just after:
   shaped after the UCI URL Reputation set (2,396,130 sets of 116 items
   from 3,231,961 features), 16-bit packed Hamming kernel;
 
-the SILK bucket MinHash kernel on all three. All data is generated from
-a seed, not downloaded. It checks that each path launched its kernels,
-round-trips checkpoints, and reproduces the labels of models fitted and
-saved by the JAX reference (``tests/data/geek_ref_{dense,hetero,sparse}``).
+the SILK bucket MinHash kernel on all three. Then the multi-device paths,
+on a one-rank NCCL process group started in this process (a card runs one
+rank; more ranks are shown by the gloo tests on the CPU):
+
+- the same three fits through ``fit(..., mesh=make_mesh())`` (distributed
+  SILK discovery) and ``make_predict_sharded``, which must equal the
+  in-core fits and predicts bit for bit;
+- the paper's table-sync fit, ``make_fit_dense`` at 1,000,000 x 128 with
+  two Lloyd refine sweeps, with and without ``compress_collectives``:
+  each sweep one launch of the L2 assign-and-accumulate kernel.
+
+All data is generated from a seed, not downloaded. It checks that each
+path launched its kernels, round-trips checkpoints, and reproduces the
+labels of models fitted and saved by the JAX reference
+(``tests/data/geek_ref_{dense,hetero,sparse}``).
 Any failure raises and exits non-zero. The line before the last is a
 JSON object with each kernel's launches, error, times and bound; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -63,6 +74,10 @@ PACKED_OPS = {1: (2, 1), 2: (4, 1), 4: (5, 1), 8: (5, 1), 16: (5, 1),
 
 N_FIT, N_FRESH, D, K_TRUE = 1_000_000, 65_536, 128, 64
 L2_SHAPES = [(64, 8, 16), (130, 33, 70), (257, 128, 128), (100, 5, 960)]
+# the accumulating kernel's sweep: k not a multiple of the 64-center tile,
+# more rows than its 256 slots hold tiles, and the main path's k_max
+ACC_SHAPES = L2_SHAPES + [(20_000, 70, 128), (40_000, 1024, 128)]
+REFINE_SWEEPS = 2
 MH_SHAPES = [(10, 8, 1), (100, 64, 3), (33, 17, 5)]
 # the reference's Hamming sweeps (tests/test_kernels.py), then wider ones
 HAM_SHAPES = [(50, 4, 9, 5), (129, 17, 45, 20), (64, 8, 400, 1 << 15),
@@ -116,6 +131,117 @@ def l2_agreement(x, c, valid, kernel, plain):
         raise AssertionError(f"labels disagree beyond near-ties at rows "
                              f"{bad[:10].tolist()}")
     return int(rows.numel()), float(err.max())
+
+
+def acc_check(x, c, valid, what):
+    """Hold the accumulating kernel against the L2 kernel (labels and d²
+    bit for bit), itself (a second call, bit for bit), its plain version
+    (labels but for near-ties), its own summation order rebuilt in plain
+    float32 (sums bit for bit, so one dropped or doubled row fails) and
+    float64 (counts exact; sums within the float32 summation bound
+    (members + slots) · 2⁻²⁴ · Σ|x|). Returns the sums' largest absolute
+    deviation from float64."""
+    from repro_torch.core import assign
+    from repro_torch.kernels import distance_argmin as da
+    out = da.distance_argmin_l2_accumulate(x, c, valid)
+    labels, d2, sums, cnt = out
+    l1, d1 = da.distance_argmin_l2(x, c, valid)
+    if not (torch.equal(labels, l1) and torch.equal(d2, d1)):
+        raise AssertionError(f"{what}: labels or d² differ from the L2 kernel")
+    again = da.distance_argmin_l2_accumulate(x, c, valid)
+    if not all(torch.equal(a, b) for a, b in zip(out, again)):
+        raise AssertionError(f"{what}: two calls differ")
+    pl, pd, _, _ = assign.assign_l2_with_partials(x.float(), c.float(), valid)
+    if bool(valid.any()):
+        l2_agreement(x, c, valid, (labels, d2), (pl, pd))
+    elif bool(labels.any()) or not torch.equal(pl, labels):
+        raise AssertionError(f"{what}: no valid center, yet a label is not 0")
+    lab = labels.long()
+    if not torch.equal(cnt, torch.bincount(lab, minlength=c.shape[0]).float()):
+        raise AssertionError(f"{what}: counts differ")
+    slots = min(da.ACC_SLOTS, -(-x.shape[0] // da.BN))
+    if not torch.equal(sums, slot_order_sums(x, labels, c.shape[0], slots,
+                                             da.BN)):
+        raise AssertionError(f"{what}: sums differ from the kernel's order "
+                             "rebuilt in float32")
+    x64 = x.double()
+    want = torch.zeros(sums.shape, dtype=torch.float64, device=x.device)
+    want.index_add_(0, lab, x64)
+    abs_sum = torch.zeros_like(want).index_add_(0, lab, x64.abs())
+    bound = (cnt.double()[:, None] + da.ACC_SLOTS) * 2.0**-24 * abs_sum
+    err = (sums.double() - want).abs()
+    if bool((err > bound + 1e-30).any()):
+        raise AssertionError(f"{what}: sums off by up to {float(err.max())}")
+    return float(err.max())
+
+
+def slot_order_sums(x, labels, k, slots, bn):
+    """The accumulating kernel's (k, d) sums in its own order, in plain
+    float32: slot s takes the bn-row tiles s, s + slots, s + 2·slots, ...
+    and adds their rows in row order, starting from 0; the slots are then
+    added in slot order. Each step adds one row into every slot at once
+    (distinct targets, so one rounding each); padding goes to a spare
+    cluster k."""
+    n, d = x.shape
+    dev = x.device
+    r = torch.arange(n, device=dev)
+    tile = r // bn
+    slot = tile % slots
+    pos = (tile // slots) * bn + r % bn
+    table = torch.full((int(pos.max()) + 1, slots), n, dtype=torch.long,
+                       device=dev)
+    table[pos, slot] = r
+    xp = torch.cat([x.float(), torch.zeros((1, d), device=dev)])
+    lp = torch.cat([labels.long(), torch.full((1,), k, device=dev)])
+    acc = torch.zeros((slots * (k + 1), d), device=dev)
+    base = torch.arange(slots, device=dev) * (k + 1)
+    for rows in table:
+        idx = base + lp[rows]
+        acc[idx] = acc[idx] + xp[rows]
+    out = torch.zeros((k, d), device=dev)
+    for part in acc.view(slots, k + 1, d)[:, :k]:
+        out = out + part
+    return out
+
+
+def sharded_check(name, est, data, model, res, fresh, mesh, kernels,
+                  path_kernel):
+    """Drive one data kind's sharded path (fit with mesh=, then
+    make_predict_sharded) with every count reset just before and read just
+    after, and hold it to the in-core fit and predict bit for bit.
+    Returns (launches, fit s)."""
+    import repro_torch as rt
+    reset_launches(*kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m_s = est.fit(data, 0, mesh=mesh)
+    r_s = est.result_
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    lab_s, dist_s = rt.make_predict_sharded(mesh)(m_s, *fresh.parts)
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels}
+    lab_p, dist_p = est.predict(fresh, model=model)
+    same = (torch.equal(r_s.labels, res.labels)
+            and torch.equal(r_s.dists, res.dists)
+            and torch.equal(m_s.centers, model.centers)
+            and torch.equal(m_s.center_valid, model.center_valid)
+            and torch.equal(m_s.radius, model.radius)
+            and int(r_s.k_star) == int(res.k_star)
+            and int(r_s.overflow) == int(res.overflow))
+    if not same:
+        raise AssertionError(f"{name}: the sharded fit differs from the "
+                             "in-core fit")
+    if not (torch.equal(lab_s, lab_p) and torch.equal(dist_s, dist_p)):
+        raise AssertionError(f"{name}: make_predict_sharded differs from "
+                             "predict")
+    if launches["minhash_segments"] < est.cfg.silk_l or \
+            launches[path_kernel.__name__] < 2:
+        raise AssertionError(f"{name}: sharded path launched {launches}")
+    print(f"  sharded {name} fit {fit_s:.3f} s at g=1: labels, dists, "
+          f"centers, radius, k*={int(r_s.k_star)}, overflow equal the in-core "
+          f"fit; make_predict_sharded equals predict; launches {launches}")
+    return launches, fit_s
 
 
 def purity(labels, truth, k_max, k_true=K_TRUE):
@@ -217,15 +343,10 @@ def main():
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import repro_torch as rt
     from repro_torch.data.synthetic import sift_like
-    from repro_torch.core import assign
-    from repro_torch.data.synthetic import geonames_like, url_like
     from repro_torch.kernels import build
     from repro_torch.kernels import distance_argmin as da
-    from repro_torch.kernels import distance_argmin_hamming as dh
     from repro_torch.kernels import minhash_buckets as mh
-    from repro_torch.kernels import pack, ref
-    all_kernels = (da.distance_argmin_l2, dh.distance_argmin_hamming,
-                   dh.distance_argmin_hamming_packed, mh.minhash_segments)
+    from repro_torch.kernels import ref
 
     dev = torch.device("cuda")
     # float32 products in full float32: a TF32 x @ a would move QALSH ranks
@@ -274,6 +395,23 @@ def main():
     l2_err = max(l2_err, err)
     print(f"  ({N_FIT},1024,{D}) float32: near-ties {ties}, "
           f"max |Δd²| {err:.3g}")
+
+    phase("2b L2 assign-and-accumulate kernel vs plain")
+    acc_err = 0.0
+    for n, k, d in ACC_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((n, d), generator=gen, device=dev).to(dtype)
+            c = torch.randn((k, d), generator=gen, device=dev).to(dtype)
+            valid = torch.arange(k, device=dev) % 7 != 3
+            acc_err = max(acc_err, acc_check(x, c, valid,
+                                             f"({n},{k},{d}) {dtype}"))
+        none = torch.zeros(k, dtype=torch.bool, device=dev)
+        acc_err = max(acc_err, acc_check(x, c, none, f"({n},{k},{d}) none"))
+        print(f"  ({n},{k},{d}) float32 and bfloat16, some and no valid "
+              "centers: labels and d² equal the L2 kernel's, two calls "
+              "equal, counts exact, sums equal their order rebuilt in "
+              "float32 and within bound")
+    print(f"  sums' largest deviation from float64: {acc_err:.3g}")
 
     phase("3 MinHash kernel vs plain (bit-exact)")
 
@@ -324,6 +462,41 @@ def main():
           f"{mh_ms:.4f} ms, plain {mh_plain_ms:.3f} ms, bound "
           f"{mh_bound:.4f} ms ({mh_by}: {mh_bytes / 1e6:.1f} MB)")
     del ids, offsets, sig_k, sig_p
+
+    # a one-rank NCCL group for the multi-device paths: a FileStore in a
+    # temporary directory, no network
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as rdv_dir:
+        dist.init_process_group("nccl", init_method=f"file://{rdv_dir}/rdv",
+                                rank=0, world_size=1)
+        try:
+            # NCCL sets its communicator up at the first collective: do
+            # that here, outside the timed paths
+            dist.all_reduce(torch.zeros(1, device=dev))
+            torch.cuda.synchronize()
+            return run_paths(rt, dev, gen, card, int_rate, popc_rate, data,
+                             x_fit, x_new, cfg, l2_err, acc_err, mh_err,
+                             mh_ms, mh_plain_ms, mh_bound, mh_by)
+        finally:
+            dist.destroy_process_group()
+
+
+def run_paths(rt, dev, gen, card, int_rate, popc_rate, data, x_fit, x_new,
+              cfg, l2_err, acc_err, mh_err, mh_ms, mh_plain_ms, mh_bound,
+              mh_by):
+    """The main paths (phases 4-9, with the sharded and table-sync paths
+    beside them), then the kernels line and the last line."""
+    from repro_torch.core import assign
+    from repro_torch.data.synthetic import geonames_like, url_like
+    from repro_torch.kernels import distance_argmin as da
+    from repro_torch.kernels import distance_argmin_hamming as dh
+    from repro_torch.kernels import minhash_buckets as mh
+    from repro_torch.kernels import pack, ref
+    all_kernels = (da.distance_argmin_l2, da.distance_argmin_l2_accumulate,
+                   dh.distance_argmin_hamming,
+                   dh.distance_argmin_hamming_packed, mh.minhash_segments)
+    mesh = rt.make_mesh()
 
     phase("4 main path: GEEK(cfg).fit + predict at 1M x 128")
     print(f"  config {cfg}")
@@ -387,6 +560,65 @@ def main():
     print(f"  L2 at ({N_FIT},{cen.shape[0]},{D}), {kv} valid: kernel "
           f"{l2_ms:.3f} ms, plain {l2_plain_ms:.3f} ms, x @ c.T "
           f"{l2_lib_ms:.3f} ms, bound {l2_bound:.3f} ms ({l2_by})")
+
+    phase("4b sharded dense path: fit(mesh=) + make_predict_sharded, g=1 NCCL")
+    dense_sh_launch, dense_sh_s = sharded_check(
+        "dense", est, rt.DenseData(x_fit), model, res, rt.DenseData(x_new),
+        mesh, all_kernels, da.distance_argmin_l2)
+
+    phase(f"4c table-sync path: make_fit_dense at {N_FIT:,} x {D}, "
+          f"{REFINE_SWEEPS} refine sweeps, g=1 NCCL")
+    reset_launches(*all_kernels)
+    ts_runs = {}
+    for compress in (False, True):
+        ts_cfg = rt.GeekConfig(pair_cap=1 << 21, refine_sweeps=REFINE_SWEEPS,
+                               compress_collectives=compress)
+        before = da.distance_argmin_l2_accumulate.launches
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ts = rt.make_fit_dense(mesh, ts_cfg)(x_fit, 0)
+        torch.cuda.synchronize()
+        ts_s = time.perf_counter() - t0
+        sweeps = da.distance_argmin_l2_accumulate.launches - before
+        ks, ovf = int(ts.k_star), int(ts.overflow)
+        pur = purity(ts.labels, data.true_labels[:N_FIT], ts_cfg.k_max)
+        print(f"  compress_collectives={compress}: fit {ts_s:.3f} s, k*={ks}, "
+              f"overflow={ovf}, purity {pur:.4f}, peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+              f"accumulate kernel launches {sweeps}")
+        if sweeps != REFINE_SWEEPS:
+            raise AssertionError(f"the table-sync fit launched the accumulate "
+                                 f"kernel {sweeps} times, not {REFINE_SWEEPS}")
+        if ks <= 0 or ovf != 0 or ts.labels.shape != (N_FIT,) or not bool(
+                torch.isfinite(ts.centers[ts.center_valid]).all()):
+            raise AssertionError(f"table-sync fit: k*={ks}, overflow={ovf}")
+        ts_runs[compress] = ts
+    ts_launch = {k.__name__: k.launches for k in all_kernels}
+    print(f"  launches over both fits {ts_launch}")
+    # the accumulating kernel at the table-sync fit's own inputs: its rows
+    # and its centers (k* of k_max valid)
+    cen, cv = ts_runs[False].centers, ts_runs[False].center_valid
+    acc_err = max(acc_err, acc_check(x_fit, cen, cv, "table-sync inputs"))
+    acc_ms = cuda_ms(lambda: da.distance_argmin_l2_accumulate(x_fit, cen, cv),
+                     20)
+    acc_plain_ms = cuda_ms(lambda: assign.assign_l2_with_partials(x_fit, cen,
+                                                                  cv), 5)
+    kv = int(cv.sum())
+    k_ = cen.shape[0]
+    # 2·n·k_valid·d for the distances and n·d adds for the sums; each input
+    # read once (x, centers, ‖c‖², validity), each output written once
+    # (labels, d², sums, counts)
+    acc_bound, acc_by = bound(
+        4.0 * (N_FIT * D + k_ * D + 2 * k_ + 2 * N_FIT + k_ * D + k_),
+        [(2.0 * N_FIT * kv * D + N_FIT * D) / PEAK_F32_FLOPS])
+    print(f"  accumulate kernel at ({N_FIT},{k_},{D}), {kv} valid: kernel "
+          f"{acc_ms:.3f} ms, plain {acc_plain_ms:.3f} ms, bound "
+          f"{acc_bound:.3f} ms ({acc_by}); no single library call computes "
+          f"the assignment and the per-cluster sums; sums equal their order "
+          f"rebuilt in float32, largest deviation from float64 "
+          f"{acc_err:.3g}")
+    del ts_runs, cen, cv
 
     phase("5 checkpoints")
     with tempfile.TemporaryDirectory() as tmp:
@@ -492,7 +724,12 @@ def main():
           f"bit-exact vs plain; kernel {eq_ms:.3f} ms, plain (blocked) "
           f"{eq_plain_ms:.3f} ms, cdist(p=0) {eq_lib_ms:.3f} ms, bound "
           f"{eq_bound:.3f} ms ({eq_by})")
-    del codes, h, het_fit
+    del codes
+    het_sh_launch, het_sh_s = sharded_check(
+        "hetero", het_est, het_fit, het_model, het_est.result_,
+        rt.HeteroData(h.x_num[N_HET:], h.x_cat[N_HET:]), mesh, all_kernels,
+        dh.distance_argmin_hamming)
+    del h, het_fit
     torch.cuda.empty_cache()
 
     phase(f"8 sparse main path: fit + predict at {N_URL:,} sets x {NNZ_URL}")
@@ -532,7 +769,12 @@ def main():
           f"fields), {kv} valid: bit-exact vs plain; kernel {pk_ms:.3f} ms, "
           f"plain (blocked) {pk_plain_ms:.3f} ms, bound {pk_bound:.3f} ms "
           f"({pk_by}); no single library call computes it")
-    del xp, url_fit
+    del xp
+    url_sh_launch, url_sh_s = sharded_check(
+        "sparse", url_est, url_fit, url_model, url_est.result_,
+        rt.SparseData(u.sets[N_URL:], u.mask[N_URL:]), mesh, all_kernels,
+        dh.distance_argmin_hamming_packed)
+    del url_fit
 
     phase("9 code-space checkpoints")
     for name, est_, m_, q in (
@@ -570,7 +812,8 @@ def main():
               f"{want.numel()} labels and distances reproduced exactly")
 
     print(f"  fit s: dense {dense_fit_s:.3f}, hetero {het_fit_s:.3f}, "
-          f"sparse {url_fit_s:.3f}")
+          f"sparse {url_fit_s:.3f}; sharded at g=1: dense {dense_sh_s:.3f}, "
+          f"hetero {het_sh_s:.3f}, sparse {url_sh_s:.3f}")
     kernels = [
         {"name": "distance_argmin_l2", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/distance_argmin.cu",
@@ -578,6 +821,12 @@ def main():
          "launches": launches["l2"], "max_abs_err": l2_err, "ms": l2_ms,
          "plain_ms": l2_plain_ms, "bound_ms": l2_bound, "bound_by": l2_by,
          "library_ms": l2_lib_ms},
+        {"name": "distance_argmin_l2_accumulate", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/distance_argmin.cu",
+         "replaces": "src/repro/kernels/distance_argmin.py:207",
+         "launches": ts_launch["distance_argmin_l2_accumulate"],
+         "max_abs_err": acc_err, "ms": acc_ms, "plain_ms": acc_plain_ms,
+         "bound_ms": acc_bound, "bound_by": acc_by, "library_ms": None},
         {"name": "distance_argmin_hamming", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/distance_argmin_hamming.cu",
          "replaces": "src/repro/kernels/distance_argmin.py:278",

@@ -1,7 +1,7 @@
 """GEEK ported to PyTorch and CUDA, beside the JAX reference ``repro``.
 
-The in-core fit and exact predict of dense, heterogeneous and sparse
-data, on an NVIDIA card by default::
+The in-core and sharded fits and exact predict of dense, heterogeneous
+and sparse data, on an NVIDIA card by default::
 
     from repro_torch import GEEK, DenseData, GeekConfig, HeteroData, predict
 
@@ -11,6 +11,16 @@ data, on an NVIDIA card by default::
     model = est.fit(HeteroData(x_num, x_cat), 0)   # or SparseData(sets, mask)
     labels, dists = est.predict(HeteroData(new_num, new_cat))
 
+Sharded over the ranks of a ``torch.distributed`` process group (NCCL on
+cards, gloo on CPU processes), called on every rank with the same data::
+
+    from repro_torch import make_fit_dense, make_mesh, make_predict_sharded
+
+    mesh = make_mesh()                         # the default process group
+    model = est.fit(DenseData(x), 0, mesh=mesh)
+    labels, dists = make_predict_sharded(mesh)(model, new_x)
+    res = make_fit_dense(mesh, cfg)(x, 0)      # the paper's table-sync fit
+
 The package imports ``torch``, ``numpy`` and the standard library only;
 its module layout mirrors ``repro``'s so each module's counterpart is
 found by name. The hand-written CUDA kernels live in
@@ -19,9 +29,13 @@ found by name. The hand-written CUDA kernels live in
 from repro_torch.checkpoint.manager import restore_model, save_model
 from repro_torch.core.api import (GEEK, DenseData, HeteroData, KernelAssigner,
                                   LSHBucketer, SILKSeeder, SparseData)
+from repro_torch.core.distributed import make_fit_dense, make_predict_sharded
 from repro_torch.core.geek import GeekConfig, GeekResult
 from repro_torch.core.model import GeekModel, predict
+from repro_torch.utils.compat import Mesh, make_mesh
 
 __all__ = sorted(["DenseData", "GEEK", "GeekConfig", "GeekModel", "GeekResult",
-                  "HeteroData", "KernelAssigner", "LSHBucketer", "SILKSeeder",
-                  "SparseData", "predict", "restore_model", "save_model"])
+                  "HeteroData", "KernelAssigner", "LSHBucketer", "Mesh",
+                  "SILKSeeder", "SparseData", "make_fit_dense", "make_mesh",
+                  "make_predict_sharded", "predict", "restore_model",
+                  "save_model"])

@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.core import model as model_mod
 from repro_torch.core import transform as transform_mod
+from repro_torch.utils import compat
 from repro_torch.utils.device import resolve_device
 
 #: dtypes of the canonical leaves, as the reference writes them; centers
@@ -123,13 +124,20 @@ def model_from_numpy(arrays: dict[str, np.ndarray], meta: dict,
 
 
 def restore_model(directory: str, *, step: int | None = None,
-                  device=None) -> model_mod.GeekModel:
+                  device=None, mesh=None) -> model_mod.GeekModel:
     """Rebuild a GeekModel from ``save_model`` files, either package's.
 
     ``device`` as in ``GEEK``: ``None`` is ``cuda``, ``"cpu"`` the plain
-    path. Pre-transform checkpoints (no "fields" in the manifest) read
-    the canonical fields in sorted order.
+    path. With ``mesh`` (a ``utils.compat.Mesh``) every rank restores the
+    same model on ``device``, ready for ``make_predict_sharded``; the
+    mesh's backend must be the device's (NCCL for ``cuda``, gloo for the
+    CPU), else this raises.
+    Pre-transform checkpoints (no "fields" in the manifest) read the
+    canonical fields in sorted order.
     """
+    device = resolve_device(device)
+    if mesh is not None:
+        compat.check_device(mesh, device)
     if step is None:
         step = _latest_step(directory)
     path = _step_dir(directory, step)

@@ -1,13 +1,16 @@
-"""One estimator facade + pluggable stage protocols, for in-core data.
+"""One estimator facade + pluggable stage protocols.
 
 The counterpart of ``repro.core.api``::
 
     from repro_torch import GEEK, DenseData, HeteroData, SparseData, predict
+    from repro_torch.utils.compat import make_mesh
 
     est = GEEK(GeekConfig(k_max=256))            # runs on cuda
     model = est.fit(DenseData(x), 0)             # seed or torch.Generator
     model = est.fit(HeteroData(x_num, x_cat), 0) # or SparseData(sets, mask)
     labels, dists = est.predict(HeteroData(new_num, new_cat))
+    model = est.fit(DenseData(x), 0, mesh=make_mesh())   # sharded, per rank
+    labels, dists = est.predict(DenseData(new_x), mesh=make_mesh())
 
 Underneath, the paper's three stages are the reference's protocols:
 ``LSHBucketer`` (QALSH rank partition for dense rows, MinHash (K, L)
@@ -17,18 +20,29 @@ buckets over coded items for hetero and sparse rows), ``SILKSeeder`` and
 the drawn arrays as arguments, so a caller can hand it arrays drawn
 elsewhere (the parity tests hand it the reference's JAX-drawn ones).
 
-Not ported yet, and refused with ``NotImplementedError``: ``mesh=``
-(ROADMAP.md Queue 1 item 12), ``chunk=`` / ``seed_cap=`` and chunk
-iterators (item 11), ``batch=`` (item 13) and ``probes=`` (item 9).
+``mesh=`` (a ``utils.compat.Mesh`` over a ``torch.distributed`` process
+group: NCCL on cards, gloo on CPU processes) shards the fit and predict
+over ranks. Every rank calls ``fit`` with the same global data and seed
+and gets the same model and global labels: distributed SILK discovery by
+default (``core.distributed.discover_sharded``), bit-identical to the
+in-core fit, or discovery on an all-gathered reservoir
+(``discovery="gathered"``, and ``seed_cap=``).
+
+Not ported yet, and refused with ``NotImplementedError``: ``chunk=`` and
+chunk iterators (ROADMAP.md Queue 1 item 11), ``batch=`` (item 13) and
+``probes=`` (item 9).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
+import warnings
 from typing import Any, ClassVar
 
 import torch
 
 from repro_torch.core import assign as assign_mod
+from repro_torch.core import distributed as dist_mod
 from repro_torch.core import lsh
 from repro_torch.core.buckets import (BucketTables, partition_by_signature,
                                       partition_even)
@@ -40,7 +54,9 @@ from repro_torch.core.model import GeekModel
 from repro_torch.core.model import predict as model_predict
 from repro_torch.core.silk import Seeds, silk_seeding
 from repro_torch.core.transform import IdentityTransform
-from repro_torch.utils.device import full_precision_matmul, resolve_device
+from repro_torch.utils import compat
+from repro_torch.utils.device import (full_precision_matmul, parts_to_device,
+                                      resolve_device)
 from repro_torch.utils.hashing import derive_hash_keys
 
 
@@ -140,22 +156,6 @@ def as_dataset(data) -> Dataset:
         f"{type(data).__name__} — tuples are ambiguous (hetero vs sparse)")
 
 
-def _to_device(parts: tuple, device) -> tuple:
-    """Move raw parts to ``device`` with the types JAX would give them
-    (64-bit off): floats as float32, integers as int32, bool masks as
-    bool; ``None`` parts stay ``None``."""
-    out = []
-    for p in parts:
-        if p is not None:
-            p = torch.as_tensor(p, device=device)
-            if p.dtype.is_floating_point:
-                p = p.to(torch.float32)
-            elif p.dtype != torch.bool:
-                p = p.to(torch.int32)
-        out.append(p)
-    return tuple(out)
-
-
 # ---------------------------------------------------------------------------
 # Stage protocols
 # ---------------------------------------------------------------------------
@@ -182,8 +182,10 @@ class LSHBucketer:
         - dense: the (d, m) QALSH matrix ``a``; ``bkeys = (a,)``;
         - hetero: the (1, 2) item-hash pair, then the (bucket_l,
           bucket_k, 2) signature keys; ``bkeys = (item, sig)``;
-        - sparse: the (1, 2) DOPH hash pair (``tkeys``, the transform's),
-          then the item pair and the signature keys as for hetero;
+        - sparse: the raw (2,) uint32 DOPH key (``tkeys``, the
+          transform's, from which it derives its hash pair as the
+          reference does), then the item pair and the signature keys as
+          for hetero;
 
         then, for every kind, the (silk_l + 1, silk_k, 2) SILK table keys
         that the seeder consumes. ``d`` is the dense width (unused for
@@ -194,7 +196,8 @@ class LSHBucketer:
             bkeys = (lsh.qalsh_projections(gen, d, cfg.m),)
         else:
             if kind == "sparse":
-                tkeys = derive_hash_keys(gen, (1,))
+                tkeys = torch.randint(0, 1 << 32, (2,), generator=gen,
+                                      device=gen.device, dtype=torch.int64)
             bkeys = (derive_hash_keys(gen, (1,)),
                      derive_hash_keys(gen, (cfg.bucket_l, cfg.bucket_k)))
         table_keys = derive_hash_keys(gen, (cfg.silk_l + 1, cfg.silk_k))
@@ -280,15 +283,18 @@ class KernelAssigner:
 # ---------------------------------------------------------------------------
 
 def discover(kind: str, parts: tuple, cfg: GeekConfig, bucketer, seeder, *,
-             tkeys, bkeys: tuple, skeys: torch.Tensor):
+             tkeys, bkeys: tuple, skeys: torch.Tensor, code=None):
     """Stage 1 + 2: fit the transform, bucket, seed.
 
     ``tkeys`` / ``bkeys`` / ``skeys`` are the drawn arrays
-    (``LSHBucketer.split_key``). Returns ``(transform, space, seeds,
+    (``LSHBucketer.split_key``). ``code`` optionally replaces the
+    default ``transform(*parts)`` with ``code(transform, parts)`` (the
+    gathered sparse fit codes each rank's rows and gathers the narrow
+    codes, not the raw sets). Returns ``(transform, space, seeds,
     overflow)``.
     """
     transform = bucketer.fit_transform(kind, parts, tkeys, cfg)
-    space = transform(*parts)
+    space = transform(*parts) if code is None else code(transform, parts)
     buckets = bucketer.buckets(kind, space, bkeys, cfg)
     seeds, overflow = seeder.seed(space, buckets, skeys, cfg)
     return transform, space, seeds, overflow
@@ -314,11 +320,139 @@ def _fit_incore(parts: tuple, keys: tuple, *, cfg: GeekConfig, kind: str,
 
 
 # ---------------------------------------------------------------------------
+# Sharded fit: distributed discovery by default, gathered as the fallback
+# ---------------------------------------------------------------------------
+
+def _resolve_discovery(discovery: str | None, seed_cap, n: int, bucketer,
+                       seeder) -> str:
+    """Resolve the ``discovery=`` knob to "sharded" or "gathered".
+
+    ``None`` (the default) means auto: distributed SILK discovery
+    (``core.distributed.discover_sharded``) when the stock
+    ``LSHBucketer`` + ``SILKSeeder`` pipeline runs at full coverage,
+    else "gathered", with a ``UserWarning`` naming every reason, since the
+    gathered plan replicates the reservoir on every rank. An explicit
+    ``"sharded"`` raises in those cases instead; an explicit
+    ``"gathered"`` always gathers, silently.
+    """
+    if discovery not in (None, "sharded", "gathered"):
+        raise ValueError(f"discovery must be None (auto), 'sharded' or "
+                         f"'gathered', got {discovery!r}")
+    if discovery == "gathered":
+        return "gathered"
+    reasons = []
+    if seed_cap is not None and seed_cap < n:
+        reasons.append(f"seed_cap={seed_cap} subsamples the reservoir "
+                       f"(n={n})")
+    if type(bucketer) is not LSHBucketer:
+        bname = getattr(bucketer, "name", type(bucketer).__name__)
+        reasons.append(f"custom bucketer {bname!r} is not distributable")
+    if type(seeder) is not SILKSeeder:
+        sname = getattr(seeder, "name", type(seeder).__name__)
+        reasons.append(f"seeder {sname!r} does not consume distributed "
+                       "bucket tables")
+    if not reasons:
+        return "sharded"
+    if discovery == "sharded":
+        raise ValueError(
+            "discovery='sharded' was requested explicitly but distributed "
+            "discovery cannot run: " + "; ".join(reasons) + ". Pass "
+            "discovery='gathered' (replicated-reservoir discovery) or "
+            "leave discovery=None to let the fit fall back automatically")
+    warnings.warn(
+        "discovery=None fell back to gathered (replicated-reservoir) "
+        "discovery: " + "; ".join(reasons) + ". Pass "
+        "discovery='gathered' explicitly to acknowledge the replication "
+        "and silence this warning", UserWarning, stacklevel=4)
+    return "gathered"
+
+
+def _check_gather_bytes(kind: str, parts: tuple, n: int,
+                        cfg: GeekConfig) -> None:
+    """Fail fast when the gathered reservoir would be unreasonably big:
+    with ``seed_cap=None`` every rank holds all of it. Sparse data
+    gathers the (n, doph_m) int32 codes, not the raw sets."""
+    if kind == "sparse":
+        est = n * cfg.doph_m * 4
+    else:
+        est = sum(n * math.prod(p.shape[1:]) * p.element_size()
+                  for p in parts if p is not None)
+    if est > cfg.gather_cap_bytes:
+        raise ValueError(
+            f"gathered discovery would replicate a ~{est:,}-byte "
+            f"reservoir per device (cap: GeekConfig.gather_cap_bytes="
+            f"{cfg.gather_cap_bytes:,}); use discovery='sharded' "
+            "(distributed discovery, the default for the stock "
+            "pipeline), pass seed_cap= to subsample the reservoir, or "
+            "raise gather_cap_bytes")
+
+
+def _fit_sharded_sharded(local_parts: tuple, keys: tuple, mesh, n: int, *,
+                         cfg: GeekConfig, kind: str, bucketer, seeder,
+                         assigner):
+    """Per-rank fit body with distributed discovery: seeds, centers,
+    labels and radius bit-identical to the in-core fit."""
+    transform, space_local, seeds, overflow = dist_mod.discover_sharded(
+        kind, local_parts, keys, cfg, mesh, n)
+    # rebuild the seed-member rows on every rank (one-owner sum) and replay
+    # the in-core center math on them: the same rows in the same order
+    space_sel = dist_mod.collect_seed_rows(space_local, seeds.id,
+                                           seeds.valid, mesh)
+    local_seeds = seeds._replace(id=torch.arange(
+        space_sel.shape[0], dtype=torch.int32, device=space_sel.device))
+    model = assigner.build(space_sel, local_seeds, cfg,
+                           metric=bucketer.metric(kind),
+                           bits=bucketer.code_bits(kind, local_parts, cfg),
+                           transform=transform, bucketer_id=bucketer.name,
+                           seeder_id=seeder.name)
+    return model, space_local, seeds, overflow
+
+
+def _fit_sharded_gathered(local_parts: tuple, keys: tuple, mesh, n: int, *,
+                          stride: int, cfg: GeekConfig, kind: str, bucketer,
+                          seeder, assigner):
+    """Per-rank fit body with discovery on the all-gathered (strided)
+    reservoir: ``stride == 1`` gathers the dataset in row order, hence
+    bit-identity with the in-core fit for any pipeline."""
+    nl = local_parts[0 if local_parts[0] is not None else 1].shape[0]
+    s = -(-nl // stride)                 # reservoir rows per rank
+    keep = n if stride == 1 else None    # exact cut only at stride 1
+    local_codes = []                     # the sparse hook codes once
+    if kind == "sparse":
+        def code(t, p):
+            """Code this rank's rows, gather the strided reservoir."""
+            local_codes.append(t(*p))
+            return dist_mod._gather_rows(local_codes[0][::stride].contiguous(),
+                                         mesh, keep)
+        disc_parts = local_parts
+    else:
+        code = None
+        disc_parts = tuple(
+            None if p is None else dist_mod._gather_rows(
+                p[::stride].contiguous(), mesh, keep) for p in local_parts)
+    tkeys, bkeys, skeys = keys
+    transform, space_res, seeds, overflow = discover(
+        kind, disc_parts, cfg, bucketer, seeder, tkeys=tkeys, bkeys=bkeys,
+        skeys=skeys, code=code)
+    space_local = local_codes[0] if local_codes else transform(*local_parts)
+    model = assigner.build(space_res, seeds, cfg,
+                           metric=bucketer.metric(kind),
+                           bits=bucketer.code_bits(kind, local_parts, cfg),
+                           transform=transform, bucketer_id=bucketer.name,
+                           seeder_id=seeder.name)
+    if stride > 1:                       # reservoir row ids -> dataset ids
+        gid = ((seeds.id // s) * nl + (seeds.id % s) * stride) % n
+        seeds = seeds._replace(id=torch.where(seeds.valid, gid, seeds.id))
+    return model, space_local, seeds, overflow
+
+
+# ---------------------------------------------------------------------------
 # The facade
 # ---------------------------------------------------------------------------
 
 class GEEK:
-    """The GEEK estimator for in-core dense, hetero and sparse data.
+    """The GEEK estimator for dense, hetero and sparse data, in-core or
+    sharded over a process group (``mesh=``).
 
     Parameters
     ----------
@@ -357,59 +491,130 @@ class GEEK:
             return seed
         return torch.Generator(device=self.device).manual_seed(int(seed))
 
-    def fit(self, data, seed, *, mesh=None, chunk: int | None = None,
-            seed_cap: int | None = None) -> GeekModel:
-        """Fit the pipeline on one in-core dataset.
+    def fit(self, data, seed, *, mesh=None, mesh_axis: str = "data",
+            chunk: int | None = None, seed_cap: int | None = None,
+            discovery: str | None = None) -> GeekModel:
+        """Fit the pipeline on one dataset.
 
         Parameters
         ----------
         data : DenseData, HeteroData, SparseData or (n, d) array / tensor
             Moved to the estimator's device: dense rows and numeric
             columns as float32, categories and set items as int32,
-            masks as bool.
+            masks as bool. With ``mesh=`` every rank passes the same
+            global data and fits its own rows.
         seed : int or torch.Generator
             Source of the fit's randomness (a generator on the
-            estimator's device type).
+            estimator's device type). The sharded fit draws exactly as
+            the in-core fit does, so one seed gives one model.
+        mesh : utils.compat.Mesh or None
+            Shard the fit over the ranks of a process group (NCCL for a
+            ``cuda`` estimator, gloo for ``cpu``); call on every rank.
+        mesh_axis : str
+            The mesh's axis name (checked).
+        chunk : int or None
+            The streaming fit: not ported yet.
+        seed_cap : int or None
+            Sharded fits only: at most this many reservoir rows for
+            gathered discovery (``None`` keeps all of them).
+        discovery : {None, "sharded", "gathered"}
+            Sharded fits only, as in the reference: ``None`` (auto)
+            distributes SILK discovery, bit-identical to the in-core fit,
+            and falls back to "gathered" with a ``UserWarning`` naming
+            the reasons when ``seed_cap`` subsamples or a custom
+            bucketer or seeder is plugged in; an explicit ``"sharded"``
+            raises then instead; ``"gathered"`` runs discovery on the
+            all-gathered reservoir.
 
         Returns
         -------
         GeekModel
             The fitted model (also ``model_``; the per-run
-            ``GeekResult`` lands in ``result_``).
+            ``GeekResult`` lands in ``result_``, its labels and dists
+            global (n,) on every rank).
         """
-        if mesh is not None:
-            raise _not_ported("the sharded fit (mesh=)", 12)
-        if chunk is not None or seed_cap is not None:
-            raise _not_ported("the streaming fit (chunk=, seed_cap=)", 11)
+        if chunk is not None:
+            raise _not_ported("the streaming fit (chunk=)", 11)
         data = as_dataset(data)
         full_precision_matmul()
-        parts = _to_device(data.parts, self.device)
+        parts = parts_to_device(data.parts, self.device)
         if data.kind == "dense":
             parts = (parts[0].to(torch.float32),)
-        d = next(p for p in parts if p is not None).shape[1]
-        keys = self.bucketer.split_key(data.kind, self._generator(seed), d,
-                                       self.cfg)
-        result, model = _fit_incore(parts, keys, cfg=self.cfg,
-                                    kind=data.kind, bucketer=self.bucketer,
-                                    seeder=self.seeder,
-                                    assigner=self.assigner)
+        if mesh is not None:
+            result, model = self._fit_sharded(data.kind, parts, seed, mesh,
+                                              mesh_axis, seed_cap, discovery)
+        else:
+            if seed_cap is not None:
+                raise ValueError("seed_cap needs a bounded-memory mode: "
+                                 "pass chunk= (streaming) or mesh= (sharded)")
+            d = next(p for p in parts if p is not None).shape[1]
+            keys = self.bucketer.split_key(data.kind, self._generator(seed),
+                                           d, self.cfg)
+            result, model = _fit_incore(parts, keys, cfg=self.cfg,
+                                        kind=data.kind,
+                                        bucketer=self.bucketer,
+                                        seeder=self.seeder,
+                                        assigner=self.assigner)
         self.result_, self.model_ = result, model
         return model
 
+    def _fit_sharded(self, kind, parts, seed, mesh, mesh_axis, seed_cap,
+                     discovery):
+        """Sharded fit: each rank takes its rows, discovery per knob."""
+        cfg = self.cfg
+        compat.check_device(mesh, self.device, mesh_axis)
+        none_pattern = tuple(p is None for p in parts)
+        if kind != "hetero" and any(none_pattern):
+            raise ValueError(f"{kind} fit parts must not be None")
+        local, n = dist_mod._pad_and_shard(
+            [p for p in parts if p is not None], mesh)
+        local_parts = dist_mod._reinsert_none(local, none_pattern)
+        mode = _resolve_discovery(discovery, seed_cap, n, self.bucketer,
+                                  self.seeder)
+        stride = (1 if seed_cap is None or seed_cap >= n
+                  else -(-n // seed_cap))
+        if mode == "gathered" and stride == 1:
+            _check_gather_bytes(kind, parts, n, cfg)
+        d = next(p for p in parts if p is not None).shape[1]
+        keys = self.bucketer.split_key(kind, self._generator(seed), d, cfg)
+        common = dict(cfg=cfg, kind=kind, bucketer=self.bucketer,
+                      seeder=self.seeder, assigner=self.assigner)
+        if mode == "sharded":
+            model, space_local, seeds, overflow = _fit_sharded_sharded(
+                local_parts, keys, mesh, n, **common)
+        else:
+            model, space_local, seeds, overflow = _fit_sharded_gathered(
+                local_parts, keys, mesh, n, stride=stride, **common)
+        labels, dists = self.assigner.assign(model, space_local)
+        radius = compat.pmax(assign_mod.cluster_radius(dists, labels,
+                                                       cfg.k_max), mesh)
+        model = dataclasses.replace(model, radius=radius)
+        result = GeekResult(dist_mod._gather_rows(labels, mesh, n),
+                            dist_mod._gather_rows(dists, mesh, n),
+                            model.centers, model.center_valid, model.k_star,
+                            radius, seeds, overflow)
+        return result, model
+
     def predict(self, data, *, model: GeekModel | None = None, mesh=None,
-                batch: int | None = None, probes: int | None = None):
+                mesh_axis: str = "data", batch: int | None = None,
+                probes: int | None = None):
         """Assign new raw rows with the fitted (or given) model: the
         parts are coded by the persisted fit-time transform
-        (``model.encode``) on the model's device."""
-        if mesh is not None:
-            raise _not_ported("sharded serving (mesh=)", 12)
+        (``model.encode``) on the model's device. With ``mesh=`` (call
+        on every rank, same global rows) each rank assigns its rows and
+        every rank gets the global labels
+        (``core.distributed.make_predict_sharded``), bit-identical to
+        the unsharded predict."""
         if batch is not None:
             raise _not_ported("partial-batch serving (batch=)", 13)
         if model is None:
             model = self.model_
         if model is None:
             raise ValueError("not fitted: call fit() first or pass model=")
-        full_precision_matmul()
         data = as_dataset(data)
-        parts = _to_device(data.parts, model.device)
+        if mesh is not None:
+            return dist_mod.make_predict_sharded(
+                mesh, axis=mesh_axis, probes=probes)(model, *data.parts)
+        full_precision_matmul()
+        parts = parts_to_device(data.parts, model.device)
         return model_predict(model, model.encode(*parts), probes=probes)

@@ -29,11 +29,9 @@ def centroid_centers(x: torch.Tensor, seeds: Seeds
     """
     k_max = seeds.k_max
     g = torch.where(seeds.valid, seeds.group, k_max).to(torch.int64)
-    order = torch.argsort(g, stable=True)
-    cnt_all = torch.bincount(g, minlength=k_max + 1)
-    rows = x[seeds.id.to(torch.int64)[order]]
-    sums = torch.segment_reduce(rows, "sum", lengths=cnt_all, axis=0)[:k_max]
-    cnt = cnt_all[:k_max].to(x.dtype)
+    sums = segment_sum_rows(x[seeds.id.to(torch.int64)], g,
+                            k_max + 1)[:k_max].to(x.dtype)
+    cnt = torch.bincount(g, minlength=k_max + 1)[:k_max].to(x.dtype)
     centers = sums / torch.clamp(cnt, min=1.0)[:, None]
     return centers, cnt > 0
 
@@ -104,6 +102,32 @@ def assign_l2(x: torch.Tensor, centers: torch.Tensor,
         return (torch.empty((0,), dtype=torch.int32, device=x.device),
                 torch.empty((0,), dtype=x.dtype, device=x.device))
     return torch.cat(labels), torch.cat(dists)
+
+
+def segment_sum_rows(x: torch.Tensor, seg: torch.Tensor, k: int
+                     ) -> torch.Tensor:
+    """(k, d) float32 sums of the rows of ``x`` by segment id ``seg`` in
+    [0, k): a stable sort by segment, then one ordered sum per segment,
+    so each segment's rows are added in row order, never by float
+    atomics (the same result on every call)."""
+    seg = seg.to(torch.int64)
+    order = torch.argsort(seg, stable=True)
+    lengths = torch.bincount(seg, minlength=k)
+    return torch.segment_reduce(x.to(torch.float32)[order], "sum",
+                                lengths=lengths, axis=0)
+
+
+def assign_l2_with_partials(x: torch.Tensor, centers: torch.Tensor,
+                            center_valid: torch.Tensor, *, block: int = 4096):
+    """``assign_l2`` plus per-cluster float32 partial sums (k, d) and
+    counts (k,): one Lloyd sweep's local work, the plain version of the
+    fused ``accumulate=True`` kernel (``kernels.ops.distance_argmin_l2``).
+    Returns (labels, d2, sums, counts)."""
+    lab, d2 = assign_l2(x, centers, center_valid, block=block)
+    k = centers.shape[0]
+    sums = segment_sum_rows(x, lab, k)
+    cnt = torch.bincount(lab.to(torch.int64), minlength=k).to(torch.float32)
+    return lab, d2, sums, cnt
 
 
 def _blocked_argmin(dist_of, x: torch.Tensor, big: int, valid: torch.Tensor,

@@ -79,3 +79,58 @@ def partition_by_signature(sigs: torch.Tensor) -> BucketTables:
     starts[:, 1:] = (ss[:, 1:] != ss[:, :-1]).to(torch.int32)
     seg = torch.cumsum(starts, dim=1, dtype=torch.int32) - 1
     return BucketTables(order.to(torch.int32), seg, seg[:, -1] + 1, n)
+
+
+# ---------------------------------------------------------------------------
+# Owned-table slices: the bucket-id-range partition of the sharded fit
+# ---------------------------------------------------------------------------
+# Global bucket ids are table-major (``flatten``), so a contiguous block of
+# tables per rank is a contiguous range of bucket ids. These run the exact
+# per-table math of ``partition_even`` / ``partition_by_signature`` on an
+# owned slice and also return ``b_of_id``, the bucket of each object, that
+# the distributed majority vote sends back to the id owners
+# (``core.distributed.discover_sharded``).
+
+def rank_partition_slice(h_cols: torch.Tensor, t: int):
+    """Algorithm 1 on an owned column slice of the QALSH hash matrix.
+
+    ``h_cols`` (n, mt): the mt owned tables' hash values for ALL n
+    objects. The per-column math is ``partition_even``'s (stable argsort,
+    even rank cut), so table τ is bit-identical to the in-core fit's.
+    Returns ``(ids, segments, b_of_id, sizes)``: ``ids`` / ``segments``
+    (mt, n) as in ``BucketTables``, ``b_of_id`` (mt, n) the bucket of
+    each object, ``sizes`` (mt, t) the entries per bucket.
+    """
+    n, mt = h_cols.shape
+    dev = h_cols.device
+    order = torch.argsort(h_cols, dim=0, stable=True)
+    seg = (torch.arange(n, dtype=torch.int64, device=dev) * t // n
+           ).to(torch.int32)
+    ids = order.T.to(torch.int32).contiguous()
+    segments = seg.expand(mt, n)
+    b_of_id = torch.zeros((mt, n), dtype=torch.int32, device=dev).scatter_(
+        1, ids.to(torch.int64), segments)
+    sizes = torch.bincount(seg.to(torch.int64), minlength=t).to(torch.int32)
+    return ids, segments, b_of_id, sizes.expand(mt, t)
+
+
+def signature_partition_slice(sigs: torch.Tensor):
+    """Algorithms 2 & 3 on an owned row slice of the signature matrix.
+
+    ``sigs`` (mt, n): the mt owned tables' MinHash signatures for ALL n
+    objects (carried uint32). The per-table math is
+    ``partition_by_signature``'s (stable sort, run numbering), so table τ
+    is bit-identical to the in-core fit's. Returns ``(ids, segments,
+    b_of_id, sizes)`` as ``rank_partition_slice``, with a bucket cap of n
+    per table.
+    """
+    mt, n = sigs.shape
+    tables = partition_by_signature(sigs)
+    ids, seg = tables.ids, tables.segments
+    b_of_id = torch.zeros((mt, n), dtype=torch.int32,
+                          device=sigs.device).scatter_(1, ids.to(torch.int64),
+                                                       seg)
+    sizes = torch.zeros((mt, n), dtype=torch.int32,
+                        device=sigs.device).scatter_add_(
+        1, seg.to(torch.int64), torch.ones_like(seg))
+    return ids, seg, b_of_id, sizes

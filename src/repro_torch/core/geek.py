@@ -25,8 +25,10 @@ from repro_torch.kernels.pack import bits_for_cardinality
 class GeekConfig:
     """The reference's configuration, field for field, so that
     ``GeekConfig(**dataclasses.asdict(repro_cfg))`` carries one over.
-    ``refine_sweeps``, ``compress_collectives`` and ``gather_cap_bytes``
-    wait for the sharded fit."""
+    ``refine_sweeps`` and ``compress_collectives`` serve the table-sync
+    fit (``core.distributed.make_fit_dense``; ``compress_collectives``
+    also narrows the sharded fit's bucket-map exchange), and
+    ``gather_cap_bytes`` bounds the sharded fit's gathered discovery."""
     # -- data transformation (paper §3.1) --
     m: int = 40            # QALSH hash tables (homogeneous dense)
     t: int = 64            # buckets per QALSH table (granularity knob)
@@ -164,16 +166,16 @@ def hetero_code_bits(cfg: GeekConfig, x_cat: torch.Tensor | None) -> int:
 # Sparse sets (Algorithm 3)
 # ---------------------------------------------------------------------------
 
-def make_sparse_transform(doph_hash: torch.Tensor,
+def make_sparse_transform(doph_key: torch.Tensor,
                           cfg: GeekConfig) -> SparseTransform:
-    """The persistent sparse transform under the DOPH hash pair
-    (``LSHBucketer.split_key`` draws it; the reference derives it from
-    its fit key)."""
-    return SparseTransform(doph_hash, cfg.doph_m)
+    """The persistent sparse transform under the raw (2,) DOPH key
+    (``LSHBucketer.split_key`` draws it; the reference splits it from its
+    fit key)."""
+    return SparseTransform(doph_key, cfg.doph_m)
 
 
 def sparse_codes(sets: torch.Tensor, mask: torch.Tensor,
-                 doph_hash: torch.Tensor, cfg: GeekConfig) -> torch.Tensor:
+                 doph_key: torch.Tensor, cfg: GeekConfig) -> torch.Tensor:
     """16-bit DOPH codes, as the sparse fit codes its rows. Serving
     should prefer ``model.encode(sets, mask)``."""
-    return make_sparse_transform(doph_hash, cfg)(sets, mask)
+    return make_sparse_transform(doph_key, cfg)(sets, mask)

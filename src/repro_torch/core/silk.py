@@ -12,8 +12,8 @@ Every step is a sort or a segment operation with the reference's exact
 integer semantics, so ``Seeds``, ``k_star`` and ``overflow`` are
 bit-identical to ``repro`` for the same bucket tables and keys. The L
 seeding rounds hash their buckets through ``kernels.ops.minhash_segments``
-(the hand-written kernel on the card); ``rowwise_majority`` serves only
-the sharded path and is not ported yet.
+(the hand-written kernel on the card); ``rowwise_majority`` is the same
+vote re-expressed per object, for the sharded fit (``core.distributed``).
 """
 from __future__ import annotations
 
@@ -110,6 +110,29 @@ def bins_from_signatures(sig: torch.Tensor, bucket_valid: torch.Tensor):
                                 device=sig.device).scatter_(0, border, bin_id_s)
     bin_nbuckets = segment_sum(bval_s.to(torch.int32), bin_id_s, nbcap)
     return bin_of_bucket, bin_nbuckets
+
+
+def rowwise_majority(bins_rows: torch.Tensor, bin_nbuckets: torch.Tensor,
+                     min_bin_size: int):
+    """Majority voting, re-expressed per object (one row per object).
+
+    ``bins_rows[i, t]`` is the bin that object i's bucket in table t
+    landed in (sentinel ``nbcap`` for a padding slot). Each object appears
+    once per table, so the multiset of a row's bins is the multiset of
+    that object's (bin, id) entries that ``silk_round`` votes over:
+    sorting the row and counting its runs gives the same verdicts,
+    partitioned by object. Returns ``(srt, maj)``: the row-sorted bins
+    and a mask, True at the first entry of each majority run.
+    """
+    nbcap = bin_nbuckets.shape[0]
+    srt = torch.sort(bins_rows, dim=1).values.contiguous()
+    cnt = (torch.searchsorted(srt, srt, side="right")
+           - torch.searchsorted(srt, srt, side="left")).to(torch.int32)
+    first = torch.ones_like(srt, dtype=torch.bool)
+    first[:, 1:] = srt[:, 1:] != srt[:, :-1]
+    nb = bin_nbuckets[srt.clamp(0, nbcap - 1).to(torch.int64)]
+    maj = first & (srt < nbcap) & (cnt * 2 > nb) & (nb >= min_bin_size)
+    return srt, maj
 
 
 def silk_round(
@@ -214,27 +237,38 @@ def silk_seeding(
     flat_ids, flat_seg = buckets.flatten()
     entry_valid = torch.ones_like(flat_ids, dtype=torch.bool)
     nbcap = buckets.total_bucket_cap
-    # the flattened tables are table-major with ascending buckets, so each
-    # bucket is one contiguous run of flat_ids: CSR bounds, no padding
-    offsets = torch.searchsorted(
-        flat_seg, torch.arange(nbcap + 1, dtype=torch.int32,
-                               device=flat_seg.device)).to(torch.int32)
-
+    offsets = csr_offsets(flat_seg, nbcap)
     rounds = [silk_round(flat_ids, flat_seg, entry_valid, nbcap,
                          table_keys[r], delta, 2, pair_cap, offsets=offsets)
               for r in range(silk_l)]
+    return dedup_and_select(rounds, table_keys[silk_l], pair_cap=pair_cap,
+                            k_max=k_max)
 
+
+def csr_offsets(flat_seg: torch.Tensor, nbcap: int) -> torch.Tensor:
+    """(nbcap + 1,) int32 CSR bounds of ascending global bucket ids: the
+    flattened tables are table-major with ascending buckets, so each
+    bucket is one contiguous run of entries, with no padding."""
+    return torch.searchsorted(
+        flat_seg, torch.arange(nbcap + 1, dtype=flat_seg.dtype,
+                               device=flat_seg.device)).to(torch.int32)
+
+
+def dedup_and_select(rounds: list, dedup_keys: torch.Tensor, *,
+                     pair_cap: int, k_max: int) -> tuple[Seeds, torch.Tensor]:
+    """The dedup round over the L seeding rounds' cores, then the k_max
+    largest groups. Returns (seeds, total overflow)."""
     # stack rounds; group ids offset per round (each round's groups < pair_cap)
     cat_group = torch.cat([torch.where(rd.valid, rd.group + r * pair_cap, -1)
                            for r, rd in enumerate(rounds)])
     cat_ids = torch.cat([rd.id for rd in rounds])
     cat_valid = torch.cat([rd.valid for rd in rounds])
-    group_cap = silk_l * pair_cap
+    group_cap = len(rounds) * pair_cap
 
     # dedup round: cores are buckets now; singleton bins are kept
     seg = torch.where(cat_valid, cat_group, group_cap - 1)
-    dedup = silk_round(cat_ids, seg, cat_valid, group_cap,
-                       table_keys[silk_l], 1, 1, pair_cap)
+    dedup = silk_round(cat_ids, seg, cat_valid, group_cap, dedup_keys, 1, 1,
+                       pair_cap)
 
     seeds = select_top_groups(dedup, pair_cap, k_max)
     overflow = torch.stack([rd.overflow for rd in rounds]).sum() + dedup.overflow

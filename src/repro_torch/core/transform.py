@@ -11,14 +11,14 @@ into a space its one-pass assignment understands (paper §3.1):
 Coding is row-independent for all three. ``transform_meta`` /
 ``transform_arrays`` / ``transform_from`` are the checkpoint hooks.
 
-The sparse transform differs from the reference in what it persists.
-``repro`` keeps a JAX PRNG key and derives the DOPH hash pair from it
-inside ``doph_codes``; the port cannot derive that pair without
-``jax.random``, so it keeps the derived (a, b) pair itself, under the
-checkpoint leaf ``transform_doph_hash``. A checkpoint written by
-``repro`` (leaf ``transform_doph_key``) restores with a transform that
-cannot code raw sets (``encode`` raises and says why); its model still
-predicts on pre-coded 16-bit codes.
+The sparse transform persists what the reference persists: the raw
+(2,) uint32 JAX key ``doph_key``, from which ``encode`` derives the DOPH
+hash pair as ``repro``'s ``lsh.doph_codes`` does
+(``utils.hashing.derive_hash_keys_from_key``, the partitionable
+Threefry-2x32 of jax 0.9, reproduced bit for bit). Checkpoints therefore
+cross both ways: the leaf ``transform_doph_key`` is the reference's. An
+older port checkpoint that stored the derived pair itself (leaf
+``transform_doph_hash``) still restores and codes.
 """
 from __future__ import annotations
 
@@ -29,6 +29,7 @@ import torch
 
 from repro_torch.core import lsh
 from repro_torch.core.model import NumericDiscretizer
+from repro_torch.utils.hashing import derive_hash_keys_from_key
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,26 +74,28 @@ class HeteroTransform:
 
 @dataclasses.dataclass(frozen=True)
 class SparseTransform:
-    """16-bit truncated DOPH codes under the fit-time hash pair.
+    """16-bit truncated DOPH codes under the fit-time key.
 
-    ``doph_hash`` is the (2,) uint32 (a, b) pair in the int64 carrier, or
-    None for a model restored from a ``repro`` checkpoint, which keeps a
-    JAX PRNG key instead (module docstring).
+    ``doph_key`` is the raw (2,) uint32 JAX key in the int64 carrier; the
+    DOPH hash pair is derived from it on every call, as the reference
+    does. ``doph_hash`` is set instead only for a model restored from an
+    older port checkpoint that stored the derived pair (module docstring).
     """
-    doph_hash: torch.Tensor | None
+    doph_key: torch.Tensor | None
     doph_m: int = 64
+    doph_hash: torch.Tensor | None = None
     kind = "sparse"
+
+    def hash_pair(self) -> torch.Tensor:
+        """The (1, 2) DOPH (a, b) pair in the int64 carrier."""
+        if self.doph_hash is not None:
+            return self.doph_hash
+        return derive_hash_keys_from_key(self.doph_key, (1,))
 
     def __call__(self, sets: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """(n, s_max) padded set items + (n, s_max) bool mask -> (n, doph_m)
         int32 codes (the top 16 bits of the DOPH hash)."""
-        if self.doph_hash is None:
-            raise ValueError(
-                "this sparse model was restored from a checkpoint of the JAX "
-                "package, which stores a JAX PRNG key (transform_doph_key) "
-                "that the port cannot turn into the DOPH hash pair without "
-                "jax.random; pass pre-coded 16-bit DOPH codes to predict()")
-        codes = lsh.doph_codes(sets, mask, self.doph_hash, self.doph_m)
+        codes = lsh.doph_codes(sets, mask, self.hash_pair(), self.doph_m)
         return (codes >> 16).to(torch.int32)
 
 
@@ -105,6 +108,8 @@ def transform_meta(t) -> dict:
     meta = {"kind": t.kind}
     if isinstance(t, SparseTransform):
         meta["doph_m"] = t.doph_m
+        if t.doph_key is not None:
+            meta["typed_key"] = False   # the raw key data, as repro reads it
     return meta
 
 
@@ -113,10 +118,9 @@ def transform_arrays(t) -> dict:
     if isinstance(t, HeteroTransform) and t.discretizer is not None:
         return {"boundaries": t.discretizer.boundaries}
     if isinstance(t, SparseTransform):
-        if t.doph_hash is None:
-            raise ValueError("a sparse transform restored from a JAX "
-                             "checkpoint has no DOPH hash pair to save")
-        # uint32 on disk, as the reference writes its hash keys
+        # uint32 on disk, as the reference writes its raw keys
+        if t.doph_key is not None:
+            return {"doph_key": t.doph_key.cpu().numpy().astype(np.uint32)}
         return {"doph_hash": t.doph_hash.cpu().numpy().astype(np.uint32)}
     return {}
 
@@ -132,8 +136,16 @@ def transform_from(meta: dict, arrays: dict, device=None):
         return HeteroTransform(None if b is None else NumericDiscretizer(
             torch.as_tensor(b, device=device).to(torch.float32)))
     if kind == "sparse":
-        h = arrays.get("doph_hash")
-        if h is not None:
-            h = torch.as_tensor(np.asarray(h).astype(np.int64), device=device)
-        return SparseTransform(h, int(meta["doph_m"]))
+        # the reference's raw or typed key (its leaf holds the key data
+        # either way), or an older port checkpoint's derived pair
+        def carried(name):
+            a = arrays.get(name)
+            return None if a is None else torch.as_tensor(
+                np.asarray(a).astype(np.int64), device=device)
+        key, pair = carried("doph_key"), carried("doph_hash")
+        if key is None and pair is None:
+            raise ValueError("sparse transform checkpoint has neither "
+                             "transform_doph_key nor transform_doph_hash")
+        return SparseTransform(key, int(meta["doph_m"]),
+                               doph_hash=None if key is not None else pair)
     raise ValueError(f"unknown transform kind {kind!r}")

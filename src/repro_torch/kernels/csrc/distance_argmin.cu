@@ -22,6 +22,22 @@
 // (d2, index) lexicographically: the lowest index wins ties whatever the
 // order of the candidates. ||x||^2 is computed here; ||c||^2 comes from the
 // caller, as the reference computes it outside its kernel.
+//
+// The accumulating variant replaces _l2_acc_kernel (distance_argmin_l2
+// with accumulate=True), the assignment step of a Lloyd refine sweep: the
+// same labels and d2, plus per-cluster float32 sums one-hot(labels)^T @ x
+// (k, d) and counts (k,) in the same pass over x. Both kernels run the one
+// per-tile argmin below, l2_argmin_tile, so their labels and d2 are the
+// same bits (held on the card at every shape chip_smoke.py sweeps). The TPU kernel adds each tile into one (k, d)
+// accumulator carried across its sequential grid; here blocks run in no
+// order, and float atomics would make the sums change from call to call.
+// So a fixed grid of ACC_SLOTS blocks (a constant, fewer only when there
+// are fewer row tiles) walks the 64-row tiles in grid stride, and each
+// block adds its rows, in row order, into its own (k, d) slot: one thread
+// per column, read-modify-write with no other writer. A second kernel sums
+// the slots in slot order. The sums are therefore the same on every call.
+// The extra work is n*d adds and the slots' k*d*ACC_SLOTS floats, small
+// beside the n*k*d FMAs of the argmin.
 #include <cfloat>
 #include <cmath>
 #include <climits>
@@ -41,11 +57,14 @@ __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
   return v < bv || (v == bv && i < bi);
 }
 
-__global__ void __launch_bounds__(THREADS)
-l2_argmin_kernel(const float* __restrict__ x, const float* __restrict__ c,
-                 const float* __restrict__ csq, const int* __restrict__ valid,
-                 int n, int k, int d, int* __restrict__ labels,
-                 float* __restrict__ d2_out) {
+// The argmin of the BN rows from row0: writes labels[row], d2_out[row]
+// and, when tile_labels is not null, the tile's labels to that shared
+// array. Called by every thread of a block.
+__device__ __forceinline__ void l2_argmin_tile(
+    const float* __restrict__ x, const float* __restrict__ c,
+    const float* __restrict__ csq, const int* __restrict__ valid, int n,
+    int k, int d, long long row0, int* __restrict__ labels,
+    float* __restrict__ d2_out, int* tile_labels) {
   __shared__ __align__(16) float xs[BD][BN + PAD];
   __shared__ __align__(16) float cs[BD][BK + PAD];
   __shared__ float xsq_s[BN];
@@ -53,7 +72,7 @@ l2_argmin_kernel(const float* __restrict__ x, const float* __restrict__ c,
   const int tid = threadIdx.x;
   const int tx = tid % (BK / TN);       // center lane: centers tx*TN ..
   const int ty = tid / (BK / TN);       // row lane: rows ty*TM ..
-  const long long row0 = (long long)blockIdx.x * BN;
+  __syncthreads();  // a previous tile of this block is done with xsq_s
 
   // ||x||^2 of the block's rows: one warp per row, lanes stride over d
   const int warp = tid / 32, lane = tid % 32;
@@ -148,8 +167,76 @@ l2_argmin_kernel(const float* __restrict__ x, const float* __restrict__ c,
       labels[row] = bi;
       d2_out[row] = fmaxf(v, 0.f);
     }
+    if (tx == 0 && tile_labels != nullptr) tile_labels[ty * TM + i] = bi;
   }
 }
+
+// The accumulating kernel calls the tile through this copy that is not
+// inlined: ptxas then allocates the tile as it does in l2_argmin_kernel,
+// where inlining it beside the accumulation made that kernel slower on the
+// card (PERF.md, section 6).
+__device__ __noinline__ void l2_argmin_tile_call(
+    const float* __restrict__ x, const float* __restrict__ c,
+    const float* __restrict__ csq, const int* __restrict__ valid, int n,
+    int k, int d, long long row0, int* __restrict__ labels,
+    float* __restrict__ d2_out, int* tile_labels) {
+  l2_argmin_tile(x, c, csq, valid, n, k, d, row0, labels, d2_out,
+                 tile_labels);
+}
+
+__global__ void __launch_bounds__(THREADS)
+l2_argmin_kernel(const float* __restrict__ x, const float* __restrict__ c,
+                 const float* __restrict__ csq, const int* __restrict__ valid,
+                 int n, int k, int d, int* __restrict__ labels,
+                 float* __restrict__ d2_out) {
+  l2_argmin_tile(x, c, csq, valid, n, k, d, (long long)blockIdx.x * BN,
+                 labels, d2_out, nullptr);
+}
+
+// One block per slot: zero the slot, then for each of its row tiles (grid
+// stride) the tile's argmin, and the tile's rows added into the slot's
+// (k, d) sums and (k,) counts in row order.
+__global__ void __launch_bounds__(THREADS)
+l2_argmin_acc_kernel(const float* __restrict__ x, const float* __restrict__ c,
+                     const float* __restrict__ csq,
+                     const int* __restrict__ valid, int n, int k, int d,
+                     int* __restrict__ labels, float* __restrict__ d2_out,
+                     float* __restrict__ slot_sums,
+                     float* __restrict__ slot_cnt) {
+  __shared__ int tile_lab[BN];
+  const int tid = threadIdx.x;
+  float* ps = slot_sums + (size_t)blockIdx.x * k * d;
+  float* pc = slot_cnt + (size_t)blockIdx.x * k;
+  for (long long e = tid; e < (long long)k * d; e += THREADS) ps[e] = 0.f;
+  for (int e = tid; e < k; e += THREADS) pc[e] = 0.f;
+  const long long tiles = ((long long)n + BN - 1) / BN;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const long long row0 = t * BN;
+    // begins with a barrier: the zeroing and the last tile's adds are done
+    l2_argmin_tile_call(x, c, csq, valid, n, k, d, row0, labels, d2_out,
+                        tile_lab);
+    __syncthreads();  // tile_lab is complete
+    const int rows = (int)min((long long)BN, (long long)n - row0);
+    for (int col = tid; col < d; col += THREADS) {
+      const float* xc = x + row0 * d + col;
+      for (int r = 0; r < rows; ++r)
+        ps[(size_t)tile_lab[r] * d + col] += xc[(long long)r * d];
+    }
+    if (tid == 0)
+      for (int r = 0; r < rows; ++r) pc[tile_lab[r]] += 1.f;
+  }
+}
+
+// out[e] = sum over slots s = 0, 1, ... of part[s * m + e], in slot order.
+__global__ void sum_slots_kernel(const float* __restrict__ part, int slots,
+                                 long long m, float* __restrict__ out) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= m) return;
+  float s = 0.f;
+  for (int g = 0; g < slots; ++g) s += part[(size_t)g * m + e];
+  out[e] = s;
+}
+
 
 }  // namespace
 
@@ -165,5 +252,31 @@ extern "C" int repro_l2_argmin_f32(const float* x, const float* c,
   const unsigned blocks = (unsigned)((n + BN - 1) / BN);
   l2_argmin_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
       x, c, csq, valid, n, k, d, labels, d2);
+  return (int)cudaGetLastError();
+}
+
+// The accumulating variant: as repro_l2_argmin_f32, plus sums (k, d) and
+// cnt (k,) float32. slot_sums (slots, k, d) and slot_cnt (slots, k) are
+// the caller's scratch; slots is the grid (at most the row tiles). Three
+// launches on `stream`; returns the first cudaGetLastError() that is not 0.
+extern "C" int repro_l2_argmin_acc_f32(const float* x, const float* c,
+                                       const float* csq, const int* valid,
+                                       int n, int k, int d, int* labels,
+                                       float* d2, float* slot_sums,
+                                       float* slot_cnt, int slots,
+                                       float* sums, float* cnt, int device,
+                                       void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = (cudaStream_t)stream;
+  l2_argmin_acc_kernel<<<slots, THREADS, 0, st>>>(
+      x, c, csq, valid, n, k, d, labels, d2, slot_sums, slot_cnt);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const long long m = (long long)k * d;
+  sum_slots_kernel<<<(unsigned)((m + 255) / 256), 256, 0, st>>>(
+      slot_sums, slots, m, sums);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  sum_slots_kernel<<<(unsigned)((k + 255) / 256), 256, 0, st>>>(
+      slot_cnt, slots, (long long)k, cnt);
   return (int)cudaGetLastError();
 }

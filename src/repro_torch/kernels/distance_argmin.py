@@ -12,6 +12,17 @@ axis that carried the running min in scratch; 64 × 64 register-tiled FMA
 products from shared memory; ties resolved to the lowest center index by
 a lexicographic (d², index) reduction. The plain version is
 ``ref.distance_argmin_l2_ref`` (and, row-blocked, ``core.assign.assign_l2``).
+
+``distance_argmin_l2_accumulate`` replaces the same function with
+``accumulate=True`` (the TPU kernel ``_l2_acc_kernel``), the assignment of
+each Lloyd refine sweep of the table-sync fit: the same labels and d², bit
+for bit (one shared device function), plus float32 per-cluster sums (k, d)
+and counts (k,) from the same pass over x. Bound on this card: the same
+operations as above, plus n·d adds. The sums take no float atomics: a
+fixed grid of ``ACC_SLOTS`` blocks adds its rows in row order into a slot
+of its own, and a second kernel sums the slots in slot order, so two calls
+give the same bits. Its plain version is
+``core.assign.assign_l2_with_partials``.
 """
 from __future__ import annotations
 
@@ -23,6 +34,13 @@ from repro_torch.kernels import build
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
              + [ctypes.c_int, ctypes.c_void_p])
+_ACC_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                 + [ctypes.c_void_p] * 4 + [ctypes.c_int]
+                 + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
+
+#: the accumulating kernel's grid: one (k, d) partial slot per block
+ACC_SLOTS = 256
+BN = 64   # rows per tile, as in the source
 
 
 def _entry():
@@ -31,16 +49,14 @@ def _entry():
     return fn
 
 
-def distance_argmin_l2(x: torch.Tensor, centers: torch.Tensor,
-                       center_valid: torch.Tensor
-                       ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the kernel: (labels (n,) int32, squared distances (n,) f32).
+def _acc_entry():
+    fn = build.load("distance_argmin").repro_l2_argmin_acc_f32
+    fn.argtypes, fn.restype = _ACC_ARGTYPES, ctypes.c_int
+    return fn
 
-    ``x`` (n, d) and ``centers`` (k, d) are float32 or bfloat16 (cast to
-    float32 here), ``center_valid`` (k,) bool, all on one CUDA device.
-    ``||c||²`` is computed here in plain torch, as the reference does
-    outside its kernel. Counts one launch in ``distance_argmin_l2.launches``.
-    """
+
+def _prepare(x, centers, center_valid):
+    """Check the inputs; return (xf, cf, csq, valid int32), contiguous."""
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"distance_argmin_l2 runs on CUDA tensors, got {dev}")
@@ -63,15 +79,34 @@ def distance_argmin_l2(x: torch.Tensor, centers: torch.Tensor,
     xf = x.to(torch.float32).contiguous()
     cf = centers.to(torch.float32).contiguous()
     csq = torch.sum(cf * cf, dim=-1).contiguous()
-    valid = center_valid.to(torch.int32).contiguous()
+    return xf, cf, csq, center_valid.to(torch.int32).contiguous()
+
+
+def _device_index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def distance_argmin_l2(x: torch.Tensor, centers: torch.Tensor,
+                       center_valid: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the kernel: (labels (n,) int32, squared distances (n,) f32).
+
+    ``x`` (n, d) and ``centers`` (k, d) are float32 or bfloat16 (cast to
+    float32 here), ``center_valid`` (k,) bool, all on one CUDA device.
+    ``||c||²`` is computed here in plain torch, as the reference does
+    outside its kernel. Counts one launch in ``distance_argmin_l2.launches``.
+    """
+    dev = x.device
+    xf, cf, csq, valid = _prepare(x, centers, center_valid)
+    n, d = xf.shape
+    k = cf.shape[0]
     labels = torch.empty((n,), dtype=torch.int32, device=dev)
     d2 = torch.empty((n,), dtype=torch.float32, device=dev)
     if n == 0:
         return labels, d2
     err = _entry()(xf.data_ptr(), cf.data_ptr(), csq.data_ptr(),
                    valid.data_ptr(), n, k, d, labels.data_ptr(),
-                   d2.data_ptr(), dev.index if dev.index is not None
-                   else torch.cuda.current_device(),
+                   d2.data_ptr(), _device_index(dev),
                    torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "distance_argmin_l2")
     distance_argmin_l2.launches += 1
@@ -79,3 +114,40 @@ def distance_argmin_l2(x: torch.Tensor, centers: torch.Tensor,
 
 
 distance_argmin_l2.launches = 0
+
+
+def distance_argmin_l2_accumulate(x: torch.Tensor, centers: torch.Tensor,
+                                  center_valid: torch.Tensor):
+    """Launch the accumulating kernel: (labels (n,) int32, d² (n,) f32,
+    sums (k, d) f32, counts (k,) f32).
+
+    Labels and d² equal ``distance_argmin_l2``'s bit for bit; ``sums[j]``
+    adds the float32 rows labelled j and ``counts[j]`` counts them, in an
+    order fixed by the shapes alone. Inputs as for ``distance_argmin_l2``.
+    Counts one launch in ``distance_argmin_l2_accumulate.launches``.
+    """
+    dev = x.device
+    xf, cf, csq, valid = _prepare(x, centers, center_valid)
+    n, d = xf.shape
+    k = cf.shape[0]
+    labels = torch.empty((n,), dtype=torch.int32, device=dev)
+    d2 = torch.empty((n,), dtype=torch.float32, device=dev)
+    sums = torch.empty((k, d), dtype=torch.float32, device=dev)
+    cnt = torch.empty((k,), dtype=torch.float32, device=dev)
+    if n == 0:
+        return labels, d2, sums.zero_(), cnt.zero_()
+    slots = min(ACC_SLOTS, -(-n // BN))
+    slot_sums = torch.empty((slots, k, d), dtype=torch.float32, device=dev)
+    slot_cnt = torch.empty((slots, k), dtype=torch.float32, device=dev)
+    err = _acc_entry()(xf.data_ptr(), cf.data_ptr(), csq.data_ptr(),
+                       valid.data_ptr(), n, k, d, labels.data_ptr(),
+                       d2.data_ptr(), slot_sums.data_ptr(),
+                       slot_cnt.data_ptr(), slots, sums.data_ptr(),
+                       cnt.data_ptr(), _device_index(dev),
+                       torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "distance_argmin_l2_accumulate")
+    distance_argmin_l2_accumulate.launches += 1
+    return labels, d2, sums, cnt
+
+
+distance_argmin_l2_accumulate.launches = 0

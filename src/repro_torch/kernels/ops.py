@@ -19,11 +19,17 @@ def _on_cpu(t: torch.Tensor) -> bool:
     return t.device.type == "cpu"
 
 
-def distance_argmin_l2(x, centers, center_valid, *, block: int = 4096):
-    """(labels, squared distances); ``block`` rows per step on the CPU."""
+def distance_argmin_l2(x, centers, center_valid, *, accumulate: bool = False,
+                       block: int = 4096):
+    """(labels, squared distances); with ``accumulate`` also float32
+    per-cluster sums (k, d) and counts (k,) of the rows (one Lloyd
+    sweep's local work). ``block`` rows per step on the CPU."""
     if _on_cpu(x):
-        from repro_torch.core.assign import assign_l2
-        return assign_l2(x, centers, center_valid, block=block)
+        from repro_torch.core.assign import assign_l2, assign_l2_with_partials
+        fn = assign_l2_with_partials if accumulate else assign_l2
+        return fn(x, centers, center_valid, block=block)
+    if accumulate:
+        return _da.distance_argmin_l2_accumulate(x, centers, center_valid)
     return _da.distance_argmin_l2(x, centers, center_valid)
 
 

@@ -27,3 +27,19 @@ def full_precision_matmul() -> None:
     """
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def parts_to_device(parts: tuple, device) -> tuple:
+    """Move raw parts to ``device`` with the types JAX would give them
+    (64-bit off): floats as float32, integers as int32, bool masks as
+    bool; ``None`` parts stay ``None``."""
+    out = []
+    for p in parts:
+        if p is not None:
+            p = torch.as_tensor(p, device=device)
+            if p.dtype.is_floating_point:
+                p = p.to(torch.float32)
+            elif p.dtype != torch.bool:
+                p = p.to(torch.int32)
+        out.append(p)
+    return tuple(out)

@@ -9,6 +9,9 @@ non-negative, sort and min keep unsigned order.
 """
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 M32 = 0xFFFFFFFF
@@ -36,6 +39,52 @@ def derive_hash_keys(gen: torch.Generator, shape: tuple[int, ...]
     """
     bits = torch.randint(0, 1 << 32, tuple(shape) + (2,), generator=gen,
                          device=gen.device, dtype=torch.int64)
+    bits[..., 0] |= 1
+    return bits
+
+
+_THREEFRY_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _threefry2x32(k0: int, k1: int, x0: torch.Tensor, x1: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Threefry-2x32 (20 rounds) of the counter pairs (x0, x1) under the
+    key (k0, k1); every value a uint32 in the int64 carrier."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0, x1 = (x0 + ks[0]) & M32, (x1 + ks[1]) & M32
+    for i in range(5):
+        for r in _THREEFRY_ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & M32
+            x1 = ((x1 << r) | (x1 >> (32 - r))) & M32
+            x1 = x1 ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & M32
+    return x0, x1
+
+
+def derive_hash_keys_from_key(key, shape: tuple[int, ...]) -> torch.Tensor:
+    """(..., 2) uint32 (a | 1, b) keys derived from a raw JAX key: the
+    exact bits of ``repro.utils.hashing.derive_hash_keys(key, shape)``.
+
+    ``key`` is the raw (2,) uint32 key data (int64 carrier, or any
+    integer array; a typed key's ``jax.random.key_data``). This
+    reproduces ``jax.random.bits(key, shape + (2,), uint32)`` under the
+    partitionable Threefry-2x32 that jax 0.9 uses by default
+    (``jax_threefry_partitionable``): the counter of element i is its
+    flat index as (hi, lo) 32-bit words, and the bits are x0 ^ x1 of
+    the hashed pair. The result is in the int64 carrier, on ``key``'s
+    device (the CPU for a non-tensor key).
+    """
+    kt = (key if isinstance(key, torch.Tensor)
+          else torch.from_numpy(np.asarray(key).astype(np.int64))).reshape(-1)
+    if kt.numel() != 2:
+        raise ValueError(f"expected a raw (2,) uint32 key, got {kt.numel()} "
+                         "words")
+    k0, k1 = (int(v) & M32 for v in kt.tolist())
+    count = 2 * math.prod(shape)
+    idx = torch.arange(count, dtype=torch.int64, device=kt.device)
+    x0, x1 = _threefry2x32(k0, k1, idx >> 32, idx & M32)
+    bits = (x0 ^ x1).reshape(tuple(shape) + (2,))
     bits[..., 0] |= 1
     return bits
 

@@ -1,0 +1,270 @@
+"""Spawned gloo ranks for the port's distributed tests (``test_torch_*``).
+
+``run_ranks(fn, world, tmpdir, timeout)`` starts ``world`` processes (the
+``spawn`` method), each joining a gloo process group through a
+``FileStore`` file in ``tmpdir`` (no fixed port, so files may run in
+parallel), runs ``fn(rank, world, **kwargs)`` and returns every rank's
+result in rank order. A rank that raises fails the call with its
+traceback; ranks still running after ``timeout`` seconds are killed and
+the call fails. ``single_rank_group`` is the same group of one, in this
+process. ``fn`` must be importable by the children, so it lives in a
+module like this one, which imports no JAX.
+"""
+from __future__ import annotations
+
+import contextlib
+import multiprocessing as mp
+import os
+import queue
+import time
+import traceback
+
+
+def _rank_main(fn, rank: int, world: int, rdv: str, q, kwargs: dict):
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    try:
+        dist.init_process_group("gloo", init_method=f"file://{rdv}",
+                                rank=rank, world_size=world)
+        try:
+            out = fn(rank, world, **kwargs)
+        finally:
+            dist.destroy_process_group()
+        q.put((rank, "ok", out))
+    except BaseException:  # reported to the parent, which fails the test
+        q.put((rank, "error", traceback.format_exc()))
+
+
+def run_ranks(fn, world: int, tmpdir: str, timeout: float, **kwargs) -> list:
+    """Every rank's ``fn(rank, world, **kwargs)``, in rank order.
+
+    Keep ``kwargs`` small (paths, not arrays): ``Process.start`` writes
+    them down a pipe, and once that is full it waits for the child to
+    start up and read them, so the ranks would start one after another.
+    """
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    rdv = os.path.join(str(tmpdir), f"rendezvous_{world}_{os.getpid()}")
+    procs = [ctx.Process(target=_rank_main,
+                         args=(fn, r, world, rdv, q, kwargs), daemon=True)
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results = {}
+    deadline = time.monotonic() + timeout
+    try:
+        while len(results) < world:
+            left = deadline - time.monotonic()
+            try:
+                rank, status, out = q.get(timeout=max(left, 0.1))
+            except queue.Empty:
+                raise AssertionError(f"{world} ranks did not finish within "
+                                     f"{timeout} s") from None
+            if status != "ok":
+                raise AssertionError(f"rank {rank} of {world} failed:\n{out}")
+            results[rank] = out
+    finally:
+        for p in procs:
+            p.join(timeout=10)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+    return [results[r] for r in range(world)]
+
+
+@contextlib.contextmanager
+def single_rank_group(tmpdir: str):
+    """A gloo process group of one rank, in this process."""
+    import torch.distributed as dist
+    dist.init_process_group(
+        "gloo", init_method=f"file://{os.path.join(str(tmpdir), 'rdv_1')}",
+        rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# What each rank computes for tests/test_torch_distributed.py
+# ---------------------------------------------------------------------------
+# Data is made with numpy from a seed, the same in the parent and in every
+# rank; every result crosses back as numpy.
+
+#: the sharded fits' configuration (the reference's own sharded tests')
+SHARD_CFG = dict(m=16, t=32, silk_l=4, delta=5, k_max=64, pair_cap=8192)
+#: the table-sync fits': k_max above k* so the budget does not bind
+SYNC_CFG = dict(m=16, t=32, silk_l=4, delta=5, k_max=256, pair_cap=8192)
+SYNC_RUNS = ((0, False), (2, False), (2, True))   # (refine_sweeps, compress)
+N_FIT, N_NEW = 1537, 301                          # ragged at g = 2 and 4
+KINDS = ("dense", "hetero", "sparse")
+
+
+def blobs(kind: str, n: int, seed: int):
+    """Raw parts with cluster structure: dense (n, 24) float32, hetero
+    5 numeric + 4 categorical columns, sparse sets of 20 (ragged)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    k = 12
+    lab = rng.integers(0, k, n)
+    if kind == "dense":
+        c = rng.standard_normal((k, 24))
+        return ((c[lab] + 0.05 * rng.standard_normal((n, 24))
+                 ).astype(np.float32),)
+    if kind == "hetero":
+        x_num = (rng.standard_normal((k, 5))[lab]
+                 + 0.05 * rng.standard_normal((n, 5))).astype(np.float32)
+        return x_num, rng.integers(0, 12, (k, 4))[lab].astype(np.int32)
+    keep = rng.random((n, 20)) < 0.9
+    sets = np.where(keep, rng.integers(0, 10**5, (k, 20))[lab],
+                    rng.integers(0, 10**5, (n, 20))).astype(np.int32)
+    mask = np.ones((n, 20), bool)
+    mask[:, -4:] = rng.random((n, 4)) < 0.5
+    return sets, mask
+
+
+def exact_rows(n: int = 2000, d: int = 32, k: int = 16, seed: int = 0):
+    """Rows with two nonzero entries, each a power of two (4 or 8), on a
+    pair of dimensions per cluster: ``x @ a`` and every center sum are
+    then exact, so two libraries that round differently agree."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lab = rng.integers(0, k, n)
+    x = np.zeros((n, d), np.float32)
+    r = np.arange(n)
+    x[r, (2 * lab) % d] = 2.0 ** rng.integers(2, 4, n)
+    x[r, (2 * lab + 1) % d] = 2.0 ** rng.integers(2, 4, n)
+    return x
+
+
+def collective_inputs(g: int):
+    """Per-rank inputs of the collective tests: (g, 3, 50) float32 for
+    ``compressed_psum`` and (g, 8, 4g) int32 values below 2**8, 2**16 and
+    2**20 for ``narrow_int_all_to_all``."""
+    import numpy as np
+    rng = np.random.default_rng(g)
+    x = rng.standard_normal((g, 3, 50)).astype(np.float32)
+    ints = {b: rng.integers(0, 1 << b, (g, 8, 4 * g)).astype(np.int32)
+            for b in (8, 16, 20)}
+    return x, ints
+
+
+def as_data(kind: str, parts):
+    """The port's dataset spec of ``kind`` around raw ``parts``."""
+    import repro_torch as rt
+    return {"dense": rt.DenseData, "hetero": rt.HeteroData,
+            "sparse": rt.SparseData}[kind](*parts)
+
+
+def fit_outputs(est_cfg: dict, parts, kind: str, mesh=None, **kw):
+    """(estimator, model, the fit's outputs as numpy): a CPU fit from
+    seed 1, in-core without ``mesh``."""
+    import repro_torch as rt
+    est = rt.GEEK(rt.GeekConfig(**est_cfg), device="cpu")
+    model = est.fit(as_data(kind, parts), 1, mesh=mesh, **kw)
+    r = est.result_
+    return est, model, dict(
+        labels=r.labels.numpy(), dists=r.dists.numpy(),
+        centers=model.centers.numpy(), valid=model.center_valid.numpy(),
+        k_star=int(r.k_star), overflow=int(r.overflow),
+        radius=model.radius.numpy(),
+        seed_group=r.seeds.group.numpy(), seed_id=r.seeds.id.numpy(),
+        seed_valid=r.seeds.valid.numpy(), impl=model.impl)
+
+
+def spawned_outputs(rank: int, world: int, ckpt_dir: str, sync_path: str):
+    """The spawn entry: ``{2: ..., world: ...}``, the outputs of
+    ``mesh_outputs`` on a group of ranks 0 and 1 (ranks 0 and 1 only; it
+    carries the table-sync runs, whose inputs it reads from the .npz at
+    ``sync_path``) and on the whole world, so one spawn serves both world
+    sizes."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.utils.compat import Mesh
+    pair = dist.new_group([0, 1])
+    out = {}
+    if rank < 2:
+        out[2] = mesh_outputs(Mesh(pair), ckpt_dir, dict(np.load(sync_path)))
+    out[world] = mesh_outputs(Mesh(), ckpt_dir, None)
+    return out
+
+
+def mesh_outputs(mesh, ckpt_dir: str, sync: dict | None):
+    """Everything the distributed tests compare, from one rank of
+    ``mesh``. ``sync`` (when given) holds the reference's table-sync draws
+    ``a`` and ``keys`` and the exact rows ``x``."""
+    import warnings
+
+    import torch
+    import torch.distributed as dist
+
+    import repro_torch as rt
+    from repro_torch.distributed import compression
+    rank, world = mesh.rank, mesh.size
+    out = {}
+    for kind in KINDS:
+        parts = blobs(kind, N_FIT, 0)
+        est, model, res = fit_outputs(SHARD_CFG, parts, kind, mesh)
+        fresh = blobs(kind, N_NEW, 99)
+        lab, dst = rt.make_predict_sharded(mesh)(model, *fresh)
+        res["predict_fresh"] = (lab.numpy(), dst.numpy())
+        lab2, _ = est.predict(as_data(kind, fresh), mesh=mesh)
+        res["predict_facade"] = lab2.numpy()
+        # checkpoint of the sharded fit, restored on every rank, served
+        path = f"{ckpt_dir}/{kind}_{world}"
+        if rank == 0:
+            rt.save_model(path, model)
+        dist.barrier(group=mesh.group)
+        back = rt.restore_model(path, mesh=mesh, device="cpu")
+        res["restored_fit"] = rt.make_predict_sharded(mesh)(
+            back, *parts)[0].numpy()
+        out[("sharded", kind)] = res
+        _, _, out[("gathered", kind)] = fit_outputs(SHARD_CFG, parts, kind, mesh,
+                                             discovery="gathered")
+    for kind in ("dense", "sparse"):
+        _, _, out[("compress", kind)] = fit_outputs(
+            dict(SHARD_CFG, compress_collectives=True), blobs(kind, N_FIT, 0),
+            kind, mesh)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        _, _, capped = fit_outputs(SHARD_CFG, blobs("dense", N_FIT, 0), "dense",
+                            mesh, seed_cap=500)
+    out["seed_cap"] = dict(capped, warned=[str(w.message) for w in caught])
+    x, ints = collective_inputs(world)
+    mean, resid = compression.compressed_psum(torch.from_numpy(x[rank]), mesh)
+    out["compressed_psum"] = (mean.numpy(), resid.numpy())
+    out["narrow"] = {b: compression.narrow_int_all_to_all(
+        torch.from_numpy(v[rank]), mesh, 1 << b, split_axis=1,
+        concat_axis=0).numpy() for b, v in ints.items()}
+    tree = {"w": torch.from_numpy(x[rank][0]), "b": [torch.from_numpy(
+        x[rank][1])]}
+    means, _ = compression.compressed_psum_tree(tree, mesh)
+    out["psum_tree"] = (means["w"].numpy(), means["b"][0].numpy())
+    out["psum_leaves"] = tuple(compression.compressed_psum(
+        torch.from_numpy(x[rank][i]), mesh)[0].numpy() for i in (0, 1))
+    if sync is not None:
+        out["sync"] = table_sync_runs(mesh, sync)
+    return out
+
+
+def table_sync_runs(mesh, sync: dict, runs=SYNC_RUNS) -> dict:
+    """``make_fit_dense`` on the exact rows with the reference's draws, for
+    each (refine_sweeps, compress_collectives) of ``runs``."""
+    import torch
+
+    import repro_torch as rt
+    out = {}
+    for sweeps, compress in runs:
+        cfg = rt.GeekConfig(**SYNC_CFG, refine_sweeps=sweeps,
+                            compress_collectives=compress)
+        res = rt.make_fit_dense(mesh, cfg, device="cpu")(
+            sync["x"], 0, a=torch.tensor(sync["a"]),
+            table_keys=torch.tensor(sync["keys"].astype("int64")))
+        out[(sweeps, compress)] = dict(
+            labels=res.labels.numpy(), centers=res.centers.numpy(),
+            valid=res.center_valid.numpy(), k_star=int(res.k_star),
+            radius=res.radius.numpy(), overflow=int(res.overflow))
+    return out

@@ -106,8 +106,9 @@ def jax_code_draws(key, kind: str, cfg) -> dict:
     """The reference's hetero or sparse draws for ``key`` as numpy
     uint32, exactly as ``repro``'s LSHBucketer / transforms / SILK
     derive them: ``item_keys`` (1, 2), ``sig_keys`` (bucket_l, bucket_k,
-    2), ``table_keys`` (silk_l + 1, silk_k, 2) and, for sparse, ``doph``
-    (1, 2)."""
+    2), ``table_keys`` (silk_l + 1, silk_k, 2) and, for sparse, ``doph``:
+    the raw (2,) DOPH key that ``repro``'s sparse transform keeps (the port
+    derives the hash pair from it, as the reference does)."""
     import jax
     from repro.utils.hashing import derive_hash_keys
     out = {}
@@ -115,7 +116,7 @@ def jax_code_draws(key, kind: str, cfg) -> dict:
         k_item, k_sig, k_silk = jax.random.split(key, 3)
     else:
         k_doph, k_item, k_sig, k_silk = jax.random.split(key, 4)
-        out["doph"] = derive_hash_keys(k_doph, (1,))
+        out["doph"] = jax.random.key_data(k_doph)
     out["item_keys"] = derive_hash_keys(k_item, (1,))
     out["sig_keys"] = derive_hash_keys(k_sig, (cfg.bucket_l, cfg.bucket_k))
     out["table_keys"] = derive_hash_keys(k_silk, (cfg.silk_l + 1, cfg.silk_k))

@@ -9,8 +9,8 @@ distances on them:
   Hamming): the queries are raw parts (``x_num.npy``, ``x_cat.npy``), which
   the PyTorch port codes with the restored quantile boundaries;
 - sparse (URL-shaped sets, 16-bit DOPH codes, packed Hamming): the
-  reference's checkpoint keeps a JAX PRNG key, which the port cannot turn
-  into the DOPH hash pair, so the queries are the reference's own codes
+  queries are raw sets (``sets.npy``, ``mask.npy``), which the port codes
+  under the checkpoint's JAX key, and the reference's own codes of them
   (``codes.npy``).
 
 The port must reproduce both exactly (``tests/test_torch_fit_codes.py`` on
@@ -64,7 +64,9 @@ def main():
                     jax.random.PRNGKey(32))
     codes = np.asarray(model.encode(sets[N_FIT:], mask[N_FIT:]))
     labels, dists = predict(model, codes)
-    write("geek_ref_sparse", model, est, dict(codes=codes), labels, dists)
+    write("geek_ref_sparse", model, est,
+          dict(codes=codes, sets=sets[N_FIT:], mask=mask[N_FIT:]), labels,
+          dists)
 
 
 if __name__ == "__main__":

@@ -117,3 +117,33 @@ def test_l2_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tda.distance_argmin_l2(x, c, valid)
 
+
+
+@pytest.mark.parametrize("n,k,d", SHAPES + [(5000, 40, 32)])
+def test_l2_with_partials_matches_reference(n, k, d):
+    """``assign_l2_with_partials`` (the plain version of kernel row 2)
+    against ``repro``'s: labels equal but for counted near-ties, counts
+    exact, sums within float32 summation error of the float64 sums
+    ((members − 1) · 2⁻²⁴ · Σ|x|, recursive summation, Higham)."""
+    x, c, valid = _l2_inputs(n, k, d, seed=3)
+    jl, jd, js_, jc = ja.assign_l2_with_partials(
+        jnp.asarray(x), jnp.asarray(c), jnp.asarray(valid), block=64)
+    tl, td, ts_, tc = tops.distance_argmin_l2(
+        torch.from_numpy(x), torch.from_numpy(c), torch.from_numpy(valid),
+        accumulate=True, block=64)
+    assert tl.dtype == torch.int32 and ts_.dtype == tc.dtype == torch.float32
+    assert_labels_match(x, c, valid, np.asarray(jl), tl.numpy(),
+                        f"partials {n}x{k}x{d}")
+    lab = tl.numpy().astype(np.int64)
+    np.testing.assert_array_equal(tc.numpy(), np.bincount(lab, minlength=k))
+    x64 = x.astype(np.float64)
+    want = np.zeros((k, d))
+    np.add.at(want, lab, x64)
+    bound = np.zeros((k, d))
+    np.add.at(bound, lab, np.abs(x64))
+    bound *= np.maximum(tc.numpy()[:, None] - 1, 0) * 2.0**-24
+    assert np.all(np.abs(ts_.numpy() - want) <= bound + 1e-30)
+    if np.array_equal(np.asarray(jl), tl.numpy()):
+        np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+        np.testing.assert_allclose(ts_.numpy(), np.asarray(js_), rtol=0,
+                                   atol=float(bound.max() * 2 + 1e-30))

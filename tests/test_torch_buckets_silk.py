@@ -174,3 +174,46 @@ def test_silk_round_pieces_bit_identical(seed):
                            torch.from_numpy(v), 30)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+@pytest.mark.parametrize("n,mt,t,ties", [(700, 4, 16, False),
+                                         (513, 3, 32, True)])
+def test_rank_partition_slice_bit_identical(n, mt, t, ties):
+    """The owned-table slice of the sharded fit: ids, segments, the
+    bucket of each object and the bucket sizes, as the reference's."""
+    rng = np.random.default_rng(n)
+    h = rng.standard_normal((n, mt)).astype(np.float32)
+    if ties:
+        h = np.round(h * 2) / 2
+    want = jb.rank_partition_slice(jnp.asarray(h), t)
+    got = tb.rank_partition_slice(torch.from_numpy(h), t)
+    for w, g_ in zip(want, got):
+        np.testing.assert_array_equal(g_.numpy(), np.asarray(w))
+
+
+def test_signature_partition_slice_bit_identical():
+    rng = np.random.default_rng(5)
+    sigs = rng.integers(0, 40, (3, 600)).astype(np.uint32)   # collisions
+    sigs[1] = rng.integers(0, 2**32, 600, dtype=np.uint64).astype(np.uint32)
+    want = jb.signature_partition_slice(jnp.asarray(sigs))
+    got = tb.signature_partition_slice(carrier(sigs))
+    for w, g_ in zip(want, got):
+        np.testing.assert_array_equal(g_.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("min_bin_size", [1, 2])
+def test_rowwise_majority_bit_identical(min_bin_size):
+    """Per-object majority voting (the sharded SILK round) as the
+    reference's, sentinel padding slots included."""
+    rng = np.random.default_rng(min_bin_size)
+    nbcap = 60
+    bins_rows = rng.integers(0, 12, (300, 9)).astype(np.int32)
+    bins_rows[rng.random((300, 9)) < 0.1] = nbcap          # padding slots
+    bin_nbuckets = rng.integers(0, 7, nbcap).astype(np.int32)
+    ws, wm = js.rowwise_majority(jnp.asarray(bins_rows),
+                                 jnp.asarray(bin_nbuckets), min_bin_size)
+    gs, gm = ts.rowwise_majority(torch.from_numpy(bins_rows),
+                                 torch.from_numpy(bin_nbuckets), min_bin_size)
+    np.testing.assert_array_equal(gs.numpy(), np.asarray(ws))
+    np.testing.assert_array_equal(gm.numpy(), np.asarray(wm))
+    assert gm.any()

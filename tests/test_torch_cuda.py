@@ -80,6 +80,73 @@ def test_l2_kernel_matches_plain(cuda_device, n, k, d, dtype):
     assert np.all(np.abs(kd.cpu().numpy() - pd.cpu().numpy()) <= 1e-5 * scale)
 
 
+ACC_SHAPES = L2_SHAPES + [(20_000, 70, 128), (50_000, 1024, 32)]
+
+
+def _sum_bound(x64, labels, k):
+    """Per (cluster, column) bound on a float32 sum's error against the
+    float64 sum: (members + slots) · 2⁻²⁴ · Σ|x| (recursive summation,
+    Higham, over the kernel's two levels: rows into a slot, slots)."""
+    lab = labels.cpu().numpy().astype(np.int64)
+    abs_sum = np.zeros((k, x64.shape[1]))
+    np.add.at(abs_sum, lab, np.abs(x64))
+    cnt = np.bincount(lab, minlength=k)[:, None]
+    return (cnt + tda.ACC_SLOTS) * 2.0**-24 * abs_sum + 1e-30
+
+
+@pytest.mark.parametrize("n,k,d", ACC_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_l2_accumulate_kernel_matches_row1_and_plain(cuda_device, n, k, d,
+                                                     dtype):
+    """Kernel row 2: labels and d² equal row 1's bit for bit; labels equal
+    the plain version's but for counted near-ties; counts exact; sums
+    within the float32 summation bound of the float64 sums; and a second
+    call gives the same bits."""
+    rng = np.random.default_rng(n + k + d)
+    x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+    c = torch.from_numpy(rng.standard_normal((k, d)).astype(np.float32))
+    valid = torch.arange(k) % 7 != 3
+    tx, tc = x.to(cuda_device, dtype), c.to(cuda_device, dtype)
+    tv = valid.to(cuda_device)
+    before = tda.distance_argmin_l2_accumulate.launches
+    out = tda.distance_argmin_l2_accumulate(tx, tc, tv)
+    assert tda.distance_argmin_l2_accumulate.launches == before + 1
+    labels, d2, sums, cnt = out
+    l1, d1 = tda.distance_argmin_l2(tx, tc, tv)
+    assert torch.equal(labels, l1) and torch.equal(d2, d1)
+    again = tda.distance_argmin_l2_accumulate(tx, tc, tv)
+    for a, b in zip(out, again):
+        assert torch.equal(a, b)
+    pl, _, _, _ = tops.distance_argmin_l2(tx.float().cpu(), tc.float().cpu(),
+                                          valid, accumulate=True)
+    xf, cf = tx.float().cpu().numpy(), tc.float().cpu().numpy()
+    assert_labels_match(xf, cf, valid.numpy(), pl.numpy(),
+                        labels.cpu().numpy(), f"acc kernel {n}x{k}x{d}")
+    lab = labels.cpu().numpy().astype(np.int64)
+    np.testing.assert_array_equal(cnt.cpu().numpy(),
+                                  np.bincount(lab, minlength=k))
+    x64 = xf.astype(np.float64)
+    want = np.zeros((k, d))
+    np.add.at(want, lab, x64)
+    err = np.abs(sums.cpu().numpy() - want)
+    assert np.all(err <= _sum_bound(x64, labels, k)), float(err.max())
+
+
+def test_l2_accumulate_kernel_no_valid_center(cuda_device):
+    """No valid center: every row takes label 0, as in row 1, and the
+    sums of cluster 0 are all the rows'."""
+    x = torch.randn(300, 24, device=cuda_device)
+    c = torch.randn(10, 24, device=cuda_device)
+    none = torch.zeros(10, dtype=torch.bool, device=cuda_device)
+    labels, d2, sums, cnt = tda.distance_argmin_l2_accumulate(x, c, none)
+    assert int(labels.max()) == 0 and float(cnt[0]) == 300
+    assert float(cnt[1:].abs().sum()) == 0
+    x64 = x.double().cpu().numpy()
+    err = np.abs(sums[0].cpu().numpy() - x64.sum(0))
+    assert np.all(err <= (300 + tda.ACC_SLOTS) * 2.0**-24
+                  * np.abs(x64).sum(0) + 1e-30)
+
+
 def test_l2_kernel_no_valid_center(cuda_device):
     x = torch.randn(70, 9, device=cuda_device)
     c = torch.randn(5, 9, device=cuda_device)
@@ -256,3 +323,58 @@ def test_code_fixtures_on_card(cuda_device):
                                       np.load(os.path.join(path, "labels.npy")))
         np.testing.assert_array_equal(dists.cpu().numpy(),
                                       np.load(os.path.join(path, "dists.npy")))
+
+
+def test_card_entry_points_refuse_a_gloo_mesh(cuda_device, tmp_path):
+    """On the card a gloo group is no mesh: the facade's sharded fit, the
+    table-sync fit and restore_model raise instead of fitting on the
+    CPU."""
+    from _torch_dist import (SHARD_CFG, SYNC_CFG, blobs, exact_rows,
+                             single_rank_group)
+    x = blobs("dense", 200, 3)[0]
+    with single_rank_group(tmp_path):
+        mesh = rt.make_mesh()
+        est = rt.GEEK(rt.GeekConfig(**SHARD_CFG))
+        with pytest.raises(ValueError, match="needs a nccl mesh"):
+            est.fit(rt.DenseData(x), 0, mesh=mesh)
+        with pytest.raises(ValueError, match="needs a nccl mesh"):
+            rt.make_fit_dense(mesh, rt.GeekConfig(**SYNC_CFG))(exact_rows(), 0)
+        with pytest.raises(ValueError, match="needs a nccl mesh"):
+            rt.restore_model(os.path.join(FIXTURE, "ckpt"), mesh=mesh)
+
+
+def test_sharded_fits_on_one_rank_nccl_equal_incore(cuda_device, tmp_path):
+    """On a one-rank NCCL group: the sharded dense, hetero and sparse fits
+    equal the in-core fits on the card bit for bit, sharded predict
+    equals predict, and the table-sync fit launches the accumulate kernel
+    once per refine sweep."""
+    import torch.distributed as dist
+
+    from _torch_dist import SHARD_CFG, SYNC_CFG, blobs, exact_rows
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdv",
+                            rank=0, world_size=1)
+    try:
+        mesh = rt.make_mesh()
+        for kind, cls in (("dense", rt.DenseData), ("hetero", rt.HeteroData),
+                          ("sparse", rt.SparseData)):
+            data, fresh = cls(*blobs(kind, 1537, 0)), cls(*blobs(kind, 301, 9))
+            est = rt.GEEK(rt.GeekConfig(**SHARD_CFG))
+            model, res = est.fit(data, 1), est.result_
+            m_s = est.fit(data, 1, mesh=mesh)
+            r_s = est.result_
+            for a, b in ((r_s.labels, res.labels), (r_s.dists, res.dists),
+                         (m_s.centers, model.centers),
+                         (m_s.radius, model.radius)):
+                assert torch.equal(a, b), kind
+            assert int(r_s.k_star) == int(res.k_star) > 0
+            got = rt.make_predict_sharded(mesh)(m_s, *fresh.parts)
+            want = est.predict(fresh, model=model)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        before = tda.distance_argmin_l2_accumulate.launches
+        cfg = rt.GeekConfig(**SYNC_CFG, refine_sweeps=2)
+        ts = rt.make_fit_dense(mesh, cfg)(exact_rows(), 0)
+        assert tda.distance_argmin_l2_accumulate.launches == before + 2
+        assert int(ts.k_star) > 0 and int(ts.overflow) == 0
+    finally:
+        dist.destroy_process_group()

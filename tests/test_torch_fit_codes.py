@@ -10,6 +10,7 @@ seeds, k*, overflow, centers, labels, distances and radii. There is no
 tolerance to state.
 """
 import dataclasses
+import json
 import os
 
 import jax
@@ -22,6 +23,7 @@ import repro_torch as rt
 from _torch_parity import injected_code_bucketer, jax_code_draws, u32
 from repro.checkpoint import manager as jmgr
 from repro_torch.core import geek
+from repro_torch.core import transform as tsf
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(ROOT, "tests", "data")
@@ -149,27 +151,56 @@ def test_hetero_checkpoint_reference_to_port(fits, kind, tmp_path):
 
 
 def test_sparse_checkpoint_rules(fits, tmp_path):
-    """The port writes the DOPH hash pair and reads it back; a reference
-    checkpoint (a JAX key) restores with a transform that refuses raw
-    sets and says why, and predicts pre-coded codes exactly."""
+    """The port writes the reference's raw DOPH key (leaf
+    ``transform_doph_key``) and reads it back; a reference checkpoint
+    codes raw sets in the port to the reference's codes, labels and
+    distances; an older port checkpoint holding the derived pair
+    (``transform_doph_hash``) still restores and codes."""
     f = fits["sparse"]
     sets, mask = (torch.as_tensor(p) for p in f["parts"])
     rt.save_model(str(tmp_path / "port"), f["tmodel"])
     back = rt.restore_model(str(tmp_path / "port"), device="cpu")
-    assert torch.equal(back.transform.doph_hash, f["tmodel"].transform.doph_hash)
+    assert torch.equal(back.transform.doph_key, f["tmodel"].transform.doph_key)
     assert torch.equal(back.encode(sets, mask), f["tmodel"].encode(sets, mask))
     assert torch.equal(rt.predict(back, back.encode(sets, mask))[0],
                        f["test"].result_.labels)
     jmgr.save_model(str(tmp_path / "ref"), f["jmodel"])
     from_ref = rt.restore_model(str(tmp_path / "ref"), device="cpu")
-    with pytest.raises(ValueError, match="JAX PRNG key"):
-        from_ref.encode(sets, mask)
-    # the injected DOPH pair is the reference's, so these are its codes
-    codes = f["tmodel"].encode(sets, mask).numpy()
+    codes = from_ref.encode(sets, mask).numpy()
+    np.testing.assert_array_equal(
+        codes, np.asarray(f["jmodel"].encode(*f["parts"])))
     tl, td = rt.predict(from_ref, codes)
     jl, jdist = repro.predict(f["jmodel"], codes)
     np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
     np.testing.assert_array_equal(td.numpy(), np.asarray(jdist))
+    old = dataclasses.replace(f["tmodel"], transform=tsf.SparseTransform(
+        None, f["tmodel"].transform.doph_m,
+        doph_hash=f["tmodel"].transform.hash_pair()))
+    rt.save_model(str(tmp_path / "old"), old)
+    assert "transform_doph_hash" in json.load(open(
+        tmp_path / "old" / "step_00000000" / "manifest.json"))["extra"]["fields"]
+    legacy = rt.restore_model(str(tmp_path / "old"), device="cpu")
+    assert legacy.transform.doph_key is None
+    assert torch.equal(legacy.encode(sets, mask), f["tmodel"].encode(sets, mask))
+
+
+def test_sparse_port_checkpoint_restores_in_reference_and_codes_sets(
+        fits, tmp_path):
+    """A port-written sparse checkpoint restores in ``repro``, which codes
+    raw sets to the port's codes and predicts the port's labels. The sets
+    are the fit's, at the shapes ``test_sparse_checkpoint_rules`` already
+    compiles the reference's coding and predict for."""
+    f = fits["sparse"]
+    rt.save_model(str(tmp_path), f["tmodel"])
+    jm = jmgr.restore_model(str(tmp_path))
+    q_sets, q_mask = f["parts"]
+    tcodes = f["tmodel"].encode(torch.as_tensor(q_sets), torch.as_tensor(q_mask))
+    np.testing.assert_array_equal(np.asarray(jm.encode(q_sets, q_mask)),
+                                  tcodes.numpy())
+    jl, jdist = repro.predict(jm, jm.encode(q_sets, q_mask))
+    tl, tdist = rt.predict(f["tmodel"], tcodes)
+    np.testing.assert_array_equal(np.asarray(jl), tl.numpy())
+    np.testing.assert_array_equal(np.asarray(jdist), tdist.numpy())
 
 
 def _fixture(name):
@@ -193,6 +224,20 @@ def test_code_fixture_restores_in_port_and_predicts_reference(name):
     np.testing.assert_array_equal(dists.numpy(), arr["dists"])
 
 
+def test_sparse_fixture_reproduced_from_raw_sets():
+    """The reference's sparse fixture, coded from its raw query sets by the
+    port under the checkpoint's JAX key: its codes, labels, distances."""
+    ckpt, arr = _fixture("geek_ref_sparse")
+    tm = rt.restore_model(ckpt, device="cpu")
+    np.testing.assert_array_equal(
+        tm.encode(torch.as_tensor(arr["sets"]),
+                  torch.as_tensor(arr["mask"])).numpy(), arr["codes"])
+    labels, dists = rt.GEEK(rt.GeekConfig(), device="cpu").predict(
+        rt.SparseData(arr["sets"], arr["mask"]), model=tm)
+    np.testing.assert_array_equal(labels.numpy(), arr["labels"])
+    np.testing.assert_array_equal(dists.numpy(), arr["dists"])
+
+
 def test_port_facade_keeps_part_types_and_draws_from_seed():
     x_num, x_cat = _hetero(400, 3)
     cfg = rt.GeekConfig(**CFG)
@@ -206,10 +251,11 @@ def test_port_facade_keeps_part_types_and_draws_from_seed():
     sets, mask = _sparse(400, 3)
     est = rt.GEEK(cfg, device="cpu")
     est.fit(rt.SparseData(sets, mask), 5)
-    assert est.model_.transform.doph_hash.shape == (1, 2)
+    assert est.model_.transform.doph_key.shape == (2,)
+    assert est.model_.transform.doph_hash is None
     assert torch.equal(
         geek.sparse_codes(torch.from_numpy(sets), torch.from_numpy(mask),
-                          est.model_.transform.doph_hash, cfg),
+                          est.model_.transform.doph_key, cfg),
         est.model_.encode(torch.from_numpy(sets), torch.from_numpy(mask)))
     assert torch.equal(
         geek.hetero_codes(torch.from_numpy(x_num), torch.from_numpy(x_cat),

@@ -68,6 +68,22 @@ def test_derive_hash_keys_shape_range_and_odd_a():
     assert bool((k[..., 0] & 1).eq(1).all())
 
 
+@pytest.mark.parametrize("seed", [0, 1, 7, 12345])
+@pytest.mark.parametrize("typed", [False, True])
+def test_derive_hash_keys_from_key_matches_reference(seed, typed):
+    """The Threefry-2x32 derivation reproduces ``repro``'s
+    ``derive_hash_keys`` bit for bit, for raw and typed keys, split as the
+    sparse fit splits its key, at several shapes."""
+    import jax
+    key = jax.random.key(seed) if typed else jax.random.PRNGKey(seed)
+    for k in [key, *jax.random.split(key, 4)]:
+        raw = np.asarray(jax.random.key_data(k) if typed else k)
+        for shape in [(1,), (3,), (6, 3), (5, 3, 2)]:
+            np.testing.assert_array_equal(
+                u32(th.derive_hash_keys_from_key(carrier(raw), shape)),
+                np.asarray(jh.derive_hash_keys(k, shape)))
+
+
 def test_qalsh_hash_matches_reference():
     rng = np.random.default_rng(0)
     x = rng.standard_normal((300, 24)).astype(np.float32)
