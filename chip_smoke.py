@@ -28,6 +28,14 @@ rank; more ranks are shown by the gloo tests on the CPU):
   two Lloyd refine sweeps, with and without ``compress_collectives``:
   each sweep one launch of the L2 assign-and-accumulate kernel.
 
+Then the LM serving path: the two flash kernels against their plain
+versions over the reference's sweeps (phase 10), and Qwen3-0.6B at full
+width (28 layers, d_model 1,024, bf16, weights drawn from a seed) through
+``clustered_decode``, exact and clustered (phase 11): a 2,048-token
+prefill on the flash-attention kernel, 224 per-head GEEK fits, 64 decode
+steps on the centroid-attention kernel with routing and EMA updates, one
+refresh at step 32.
+
 All data is generated from a seed, not downloaded. It checks that each
 path launched its kernels, round-trips checkpoints, and reproduces the
 labels of models fitted and saved by the JAX reference
@@ -39,6 +47,7 @@ last line is ``{"ok": true, "device": {...}}``.
 Imports only torch, numpy, the standard library and ``repro_torch``.
 """
 import json
+import math
 import os
 import subprocess
 import sys
@@ -92,6 +101,36 @@ N_URL, U_URL, NNZ_URL, K_URL = 2_396_130, 3_231_961, 116, 32
 # d² tolerance, relative to the expansion's scale ‖x‖² + max‖c‖²: about
 # 170 float32 ulps, above either side's rounding, far below a real gap
 L2_RTOL = 1e-5
+# bf16 dense tensor-core peak (NVIDIA data sheet, H100 SXM, 700 W): the
+# bound of the attention kernels' products
+PEAK_BF16_FLOPS = 989e12
+# the reference's flash sweeps (tests/test_kernels.py): (B, Hq, Hkv, S, dh)
+# and (B, Hq, Hkv, S, K, dh) with 5 dead centroids; then the main path's
+FA_SHAPES = [(1, 4, 4, 128, 32), (2, 8, 2, 100, 64), (1, 6, 1, 65, 64),
+             (1, 2, 1, 70, 128)]
+CENT_SHAPES = [(1, 4, 4, 1, 48, 32), (2, 4, 2, 3, 100, 64),
+               (1, 3, 1, 40, 33, 16), (1, 2, 1, 1, 200, 128)]
+# float32: 2e-4 relative and absolute, the reference's own sweep (online
+# against two-pass softmax, a few ulps a key over up to 2,048 keys);
+# bfloat16: one bf16 ulp (2^-7 relative), since kernel and plain version
+# each round a float32 result once
+FA_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (2.0**-7, 1e-6)}
+# the KV-cache serving path: Qwen3-0.6B at full width, one sequence
+KV_ARCH, KV_PROMPT, KV_DECODE, KV_KMAX = "qwen3_0_6b", 2048, 64, 64
+KV_EMA, KV_REFRESH = 0.1, 32
+# the prefill's logits through kernel 7 against the plain attention on the
+# card, relative L2 error. Each layer rounds its attention output to bf16,
+# and where the two float32 results straddle a rounding boundary a one-ulp
+# difference enters the residual stream and grows through the 28
+# random-weight layers: 0.0166 measured on an H100, of the order of the
+# same forward with the plain attention in float64 (0.0183, printed beside
+# it). Two faults planted in the plain attention (no causal mask; every
+# query head on the next kv head) run beside it and must land above the
+# limit: 1.26 and 1.39 measured on an H100.
+KV_LOGIT_RTOL = 0.1
+KV_FAULTS = ("non-causal", "next kv head")
+# layers whose clustered attention is held to the error bound
+KV_BOUND_LAYERS = (0, 13, 27)
 
 
 def phase(name):
@@ -333,6 +372,323 @@ def code_path(kernels, name, est, fit_data, fresh_data, truth_fit,
             int(lab_new.min()) < 0 or int(lab_new.max()) >= k_max:
         raise AssertionError(f"{name}: bad fresh-row labels or distances")
     return model, launches, fit_s
+
+
+def fa_check(got, want, what):
+    """Raise unless the kernel's output is finite and within FA_TOL of the
+    plain version's; return max |Δ|."""
+    rtol, atol = FA_TOL[got.dtype]
+    g, w = got.float(), want.float()
+    if not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"{what}: non-finite output")
+    err = (g - w).abs()
+    if bool((err > atol + rtol * w.abs()).any()):
+        raise AssertionError(f"{what}: off by up to {float(err.max()):.3g}")
+    return float(err.max())
+
+
+def flash_phase(dev, gen):
+    """Phase 10: both flash kernels against their plain versions over the
+    reference's sweeps, all-dead centroids and the main path's shapes,
+    then timed at the main path's shapes and layouts. Returns their rows
+    of the kernels line (launches filled in by phase 11)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    phase("10 flash kernels vs plain")
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    fa_err = cent_err = 0.0
+    for B, Hq, Hkv, S, dh in FA_SHAPES + [(1, 16, 8, KV_PROMPT, 64)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (randn(B, h, S, dh, dtype=dtype) for h in (Hq, Hkv, Hkv))
+            for causal in (True, False):
+                fa_err = max(fa_err, fa_check(
+                    fa.flash_attention(q, k, v, causal=causal),
+                    ref.attention_ref(q, k, v, causal=causal),
+                    f"flash_attention {(B, Hq, Hkv, S, dh)} {dtype} "
+                    f"causal={causal}"))
+        print(f"  flash_attention ({B},{Hq},{Hkv},{S},{dh}): float32 and "
+              "bfloat16, causal and not, within tolerance")
+    for B, Hq, Hkv, S, K, dh in CENT_SHAPES + [(1, 16, 8, 1, KV_KMAX + 1, 64)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = randn(B, Hq, S, dh, dtype=dtype)
+            c, vc = randn(B, Hkv, K, dh), randn(B, Hkv, K, dh)
+            lm = torch.log1p(8.0 * torch.rand((B, Hkv, K), generator=gen,
+                                              device=dev))
+            for dead in (5, K):
+                lm[..., K - dead:] = -1e30
+                got = fa.flash_centroid_attention(q, c, vc, lm)
+                what = f"centroid {(B, Hq, Hkv, S, K, dh)} {dtype} dead={dead}"
+                cent_err = max(cent_err, fa_check(
+                    got, ref.centroid_attention_ref(q, c, vc, lm), what))
+            mean = vc.mean(2, keepdim=True).repeat_interleave(Hq // Hkv, 1)
+            fa_check(got, mean.expand(got.shape).to(dtype), what + " (mean)")
+        print(f"  flash_centroid_attention ({B},{Hq},{Hkv},{S},{K},{dh}): "
+              "float32 and bfloat16 queries, 5 dead and all dead (= the "
+              "mean of the values), within tolerance")
+
+    # kernel 7 at the prefill's inputs: Qwen3-0.6B's layer layout (B, S, H,
+    # dh) in bf16, seen transposed as the port passes it
+    B, Hq, Hkv, S, dh = 1, 16, 8, KV_PROMPT, 64
+    q = randn(B, S, Hq, dh, dtype=torch.bfloat16).transpose(1, 2)
+    k, v = (randn(B, S, Hkv, dh, dtype=torch.bfloat16).transpose(1, 2)
+            for _ in range(2))
+    fa_ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True), 20)
+    fa_plain_ms = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=True), 5)
+    fa_lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), 20)
+    # each input read once and the output written once (bf16), against
+    # 4·dh flops per (query, key) pair of the causal half at the bf16 rate
+    fa_bound, fa_by = bound(2.0 * dh * S * (2 * Hq + 2 * Hkv) * B,
+                            [4.0 * B * Hq * dh * S * (S + 1) / 2
+                             / PEAK_BF16_FLOPS])
+    print(f"  flash_attention at ({B},{Hq},{Hkv},{S},{dh}) bf16 causal: "
+          f"kernel {fa_ms:.4f} ms, plain {fa_plain_ms:.4f} ms, SDPA "
+          f"{fa_lib_ms:.4f} ms, bound {fa_bound:.4f} ms ({fa_by})")
+
+    # kernel 6 at a decode step's inputs: bf16 queries (a transposed view),
+    # float32 centroids of k_max rows plus the step's own row, log-mass
+    K = KV_KMAX + 1
+    q = randn(B, 1, Hq, dh, dtype=torch.bfloat16).transpose(1, 2)
+    c, vc = randn(B, Hkv, K, dh), randn(B, Hkv, K, dh)
+    lm = torch.log1p(8.0 * torch.rand((B, Hkv, K), generator=gen, device=dev))
+    lm[..., KV_KMAX // 2:KV_KMAX] = -1e30
+    cent_ms = cuda_ms(lambda: fa.flash_centroid_attention(q, c, vc, lm), 200)
+    cent_plain_ms = cuda_ms(lambda: ref.centroid_attention_ref(q, c, vc, lm),
+                            50)
+    qf = q.float()
+    mask = lm.repeat_interleave(Hq // Hkv, 1)[:, :, None, :]
+    cent_lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qf, c, vc, attn_mask=mask, enable_gqa=True), 200)
+    cent_bound, cent_by = bound(
+        2.0 * B * Hq * dh * 2 + 4.0 * B * Hkv * K * (2 * dh + 1),
+        [4.0 * B * Hq * K * dh / PEAK_BF16_FLOPS])
+    print(f"  flash_centroid_attention at ({B},{Hq},{Hkv},1,{K},{dh}): "
+          f"kernel {cent_ms:.4f} ms, plain {cent_plain_ms:.4f} ms, SDPA with "
+          f"a float mask {cent_lib_ms:.4f} ms, bound {cent_bound:.6f} ms "
+          f"({cent_by})")
+    return [
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:92",
+         "launches": None, "max_abs_err": fa_err, "ms": fa_ms,
+         "plain_ms": fa_plain_ms, "bound_ms": fa_bound, "bound_by": fa_by,
+         "library_ms": fa_lib_ms},
+        {"name": "flash_centroid_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:173",
+         "launches": None, "max_abs_err": cent_err, "ms": cent_ms,
+         "plain_ms": cent_plain_ms, "bound_ms": cent_bound,
+         "bound_by": cent_by, "library_ms": cent_lib_ms},
+    ]
+
+
+def plain_prefill_override(cfg, dtype=torch.float32, fault=None):
+    """An attention override computing the reference's cache branch
+    (``layers.cache_attention_ref``: the plain softmax over the whole
+    cache, no kernel) in ``dtype``, or with one of ``KV_FAULTS`` planted:
+    every key visible to every query, or each query head reading the next
+    kv head's keys and values."""
+    from repro_torch.models import layers as L
+
+    def override(layer, p, h, *, positions, cache, cache_len):
+        q, k, v = L.attn_qkv(p, h, cfg, positions=positions)
+        L.cache_write(cache, k, v, cache_len)
+        kc, vc, seen = cache["k"], cache["v"], positions
+        if fault == "non-causal":
+            seen = torch.full_like(positions, kc.shape[1] - 1)
+        elif fault == "next kv head":
+            kc, vc = kc.roll(-1, dims=2), vc.roll(-1, dims=2)
+        elif fault is not None:
+            raise ValueError(f"unknown fault {fault!r}")
+        o = L.cache_attention_ref(q.to(dtype), kc.to(dtype), vc.to(dtype),
+                                  positions=seen)
+        B, S = h.shape[:2]
+        return o.reshape(B, S, -1).to(h.dtype) @ p["wo"], cache
+    return override
+
+
+def kv_path(rt, dev, gen, all_kernels):
+    """Phase 11: Qwen3-0.6B at full width through ``clustered_decode``,
+    exact and clustered, with every launch count reset just before each
+    run and read just after; the prefill's logits against the plain
+    attention; the error bound at one decode step of a few layers.
+    Returns the clustered run's launches by kernel name."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import kv_cluster as kv
+    kernels = all_kernels + (fa.flash_attention, fa.flash_centroid_attention)
+    cfg = rt.get_arch(KV_ARCH)
+    phase(f"11 KV-cache serving path: {cfg.name} ({cfg.num_layers} layers, "
+          f"d_model {cfg.d_model}), prompt {KV_PROMPT}, {KV_DECODE} decoded")
+    t0 = time.perf_counter()
+    params = rt.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    torch.cuda.synchronize()
+    print(f"  {M.count_params(cfg):,} parameters ({cfg.dtype}) drawn in "
+          f"{time.perf_counter() - t0:.2f} s")
+    total = KV_PROMPT + KV_DECODE
+    tokens = torch.randint(0, cfg.vocab_size, (1, total), generator=gen,
+                           device=dev)
+    prompt = tokens[:, :KV_PROMPT]
+
+    # the prefill's logits through kernel 7 against the plain attention
+    before = fa.flash_attention.launches
+    logits_k, _ = M.prefill_step(params, cfg, prompt)
+    if fa.flash_attention.launches != before + cfg.num_layers:
+        raise AssertionError("the prefill did not run kernel 7 once a layer")
+    plain = {}
+    for run in (torch.float32, torch.float64) + KV_FAULTS:
+        caches = T.stack_cache_init(cfg, 1, KV_PROMPT, dev)
+        over = plain_prefill_override(cfg, run) if isinstance(
+            run, torch.dtype) else plain_prefill_override(cfg, fault=run)
+        x, _, _ = M.forward(params, cfg, prompt, caches=caches, cache_len=0,
+                            attn_override=over)
+        plain[run] = (x[:, -1] @ params["head"]["w"]).float()
+    logits_p = plain[torch.float32]
+
+    def rel_to_plain(logits):
+        return float((logits - logits_p).norm() / logits_p.norm())
+
+    rel = rel_to_plain(logits_k)
+    faults = {f: rel_to_plain(plain[f]) for f in KV_FAULTS}
+    agree = bool(logits_k.argmax() == logits_p.argmax())
+    print(f"  prefill logits, kernel 7 vs plain attention: relative L2 "
+          f"{rel:.3g} (tolerance {KV_LOGIT_RTOL}; plain float64 vs float32 "
+          f"attention {rel_to_plain(plain[torch.float64]):.3g}; planted "
+          f"faults {', '.join(f'{f} {e:.3g}' for f, e in faults.items())}), "
+          f"max |Δ| {float((logits_k - logits_p).abs().max()):.3g}, argmax "
+          f"equal: {agree}")
+    if not rel <= KV_LOGIT_RTOL:
+        raise AssertionError(f"prefill logits differ: relative {rel}")
+    if not min(faults.values()) > KV_LOGIT_RTOL:
+        raise AssertionError(f"a planted fault passes the logit check: "
+                             f"{faults}")
+    del x, logits_k, logits_p, caches, plain
+
+    runs, launches = {}, {}
+    for mode in ("exact", "clustered"):
+        reset_launches(*kernels)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = kv.clustered_decode(params, cfg, tokens, KV_PROMPT, mode=mode,
+                                  gcfg=kv.default_kv_config(KV_KMAX),
+                                  ema=KV_EMA, refresh_every=KV_REFRESH,
+                                  device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[mode] = {k.__name__: k.launches for k in kernels}
+        runs[mode] = out
+        sec = out["seconds"]
+        steps = np.array(sec["steps"])
+        print(f"  {mode}: {wall:.2f} s; prefill {sec['prefill']:.4f} s, "
+              f"fits {sec['fits']:.3f} s, decode step mean "
+              f"{steps.mean() * 1e3:.2f} ms (median "
+              f"{np.median(steps) * 1e3:.2f}, max {steps.max() * 1e3:.2f}), "
+              f"refresh {sec['refresh']:.3f} s; ppl {out['ppl']:.4f}; peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if mode == "clustered":
+            print(f"    mean k* {out['mean_k_star']:.2f} (min "
+                  f"{min(out['k_stars'])}, max {max(out['k_stars'])}), "
+                  f"compression {out['compression']:.2f}, refreshes "
+                  f"{out['refreshes']}")
+        print(f"    launches {launches[mode]}")
+    heads = cfg.num_layers * cfg.num_kv_heads
+    exact, clus = runs["exact"], runs["clustered"]
+    lx, lc = launches["exact"], launches["clustered"]
+    if not (math.isfinite(exact["ppl"]) and math.isfinite(clus["ppl"])):
+        raise AssertionError("non-finite perplexity")
+    if min(clus["k_stars"]) <= 0 or max(clus["overflows"]) != 0:
+        raise AssertionError("a head has k* = 0 or overflow")
+    if clus["refreshes"] != heads * ((KV_DECODE - 1) // KV_REFRESH):
+        raise AssertionError(f"refreshes {clus['refreshes']}")
+    if lx["flash_attention"] != cfg.num_layers or \
+            lc["flash_attention"] != cfg.num_layers:
+        raise AssertionError("kernel 7 did not launch once a layer per prefill")
+    if lc["flash_centroid_attention"] != cfg.num_layers * KV_DECODE or \
+            lx["flash_centroid_attention"] != 0:
+        raise AssertionError("kernel 6 did not launch once a layer per step")
+    if lc["distance_argmin_l2"] <= 0 or lc["minhash_segments"] <= 0:
+        raise AssertionError("the fits did not run the L2 and MinHash kernels")
+
+    # the first decode step of a few layers: each kv head fitted on its
+    # prefill keys, the step's real queries and fresh K/V. The clustered
+    # attention (no extra rows, float32) is held to the plain version on the
+    # stacked state and to the error bound of exact attention over the raw
+    # cache; the clustered step's own call (the model's dtype, the fresh
+    # row appended unclustered) to the plain version on the same rows.
+    caches = T.stack_cache_init(cfg, 1, KV_PROMPT + 1, dev)
+    M.forward(params, cfg, prompt, caches=caches, cache_len=0)
+    step_qkv = {}
+
+    def capture(layer, p, h, *, positions, cache, cache_len):
+        if layer in KV_BOUND_LAYERS:
+            step_qkv[layer] = L.attn_qkv(p, h, cfg, positions=positions)
+        return L.attn_apply(p, h, cfg, positions=positions, cache=cache,
+                            cache_len=cache_len)
+
+    M.decode_step(params, cfg, caches, KV_PROMPT,
+                  tokens[:, KV_PROMPT:KV_PROMPT + 1], attn_override=capture)
+    worst, plain_err, g = 0.0, 0.0, cfg.num_heads // cfg.num_kv_heads
+    for layer in KV_BOUND_LAYERS:
+        keys = caches[layer]["k"][0, :KV_PROMPT].float()
+        vals = caches[layer]["v"][0, :KV_PROMPT].float()
+        heads_ = []
+        for h in range(cfg.num_kv_heads):
+            cl = kv.OnlineKVCluster(kv.default_kv_config(KV_KMAX), ema=KV_EMA,
+                                    seed=(0, layer, h), device=dev)
+            cl.start(keys[:, h], vals[:, h])
+            heads_.append(cl)
+        q_step, k_step, v_step = step_qkv[layer]            # (1, 1, H, hd)
+        q = q_step.float()
+        state = kv.stack_heads(heads_)
+        got = kv.clustered_attention(q, state)[0, 0]
+        want = ref.centroid_attention_ref(
+            q.transpose(1, 2), state.centers[None], state.v_cent[None],
+            state.log_mass[None]).transpose(1, 2)[0, 0]
+        plain_err = max(plain_err, fa_check(got, want, f"layer {layer}"))
+        got_x = kv.clustered_attention(q_step, state, extra_k=k_step,
+                                       extra_v=v_step)
+        zero = torch.zeros((1, cfg.num_kv_heads, 1), device=dev)
+        want_x = ref.centroid_attention_ref(
+            q_step.transpose(1, 2),
+            torch.cat([state.centers[None], k_step.float().transpose(1, 2)],
+                      2),
+            torch.cat([state.v_cent[None], v_step.float().transpose(1, 2)],
+                      2),
+            torch.cat([state.log_mass[None], zero], 2)).transpose(1, 2)
+        if got_x.dtype != q_step.dtype:
+            raise AssertionError(f"layer {layer}: the step's output is "
+                                 f"{got_x.dtype}, not {q_step.dtype}")
+        plain_err = max(plain_err, fa_check(got_x, want_x,
+                                            f"layer {layer}, step"))
+        for qh in range(cfg.num_heads):
+            h = qh // g
+            s = (keys[:, h].double() @ q[0, 0, qh].double()) \
+                / math.sqrt(cfg.resolved_head_dim)
+            want = torch.softmax(s, 0) @ vals[:, h].double()
+            err = float((got[qh].double() - want).norm())
+            bnd = heads_[h].error_bound(float(q[0, 0, qh].norm()))
+            if not err <= bnd * (1 + 1e-5) + 1e-5:
+                raise AssertionError(f"layer {layer} head {qh}: error {err} "
+                                     f"above the bound {bnd}")
+            worst = max(worst, err / bnd)
+    print(f"  first decode step at layers {KV_BOUND_LAYERS}, all "
+          f"{cfg.num_heads} heads: clustered attention vs plain max |Δ| "
+          f"{plain_err:.3g} (float32 and the step's {cfg.dtype} with its "
+          f"fresh row); error bound held, largest error / bound {worst:.3g}")
+    return launches["clustered"]
+
+
+T0 = time.perf_counter()
 
 
 def main():
@@ -814,6 +1170,10 @@ def run_paths(rt, dev, gen, card, int_rate, popc_rate, data, x_fit, x_new,
     print(f"  fit s: dense {dense_fit_s:.3f}, hetero {het_fit_s:.3f}, "
           f"sparse {url_fit_s:.3f}; sharded at g=1: dense {dense_sh_s:.3f}, "
           f"hetero {het_sh_s:.3f}, sparse {url_sh_s:.3f}")
+    del u, het_model, url_model, het_est, url_est
+    torch.cuda.empty_cache()
+    flash_rows = flash_phase(dev, gen)
+    kv_launch = kv_path(rt, dev, gen, all_kernels)
     kernels = [
         {"name": "distance_argmin_l2", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/distance_argmin.cu",
@@ -848,6 +1208,10 @@ def run_paths(rt, dev, gen, card, int_rate, popc_rate, data, x_fit, x_new,
          "plain_ms": mh_plain_ms, "bound_ms": mh_bound, "bound_by": mh_by,
          "library_ms": None},
     ]
+    for row in flash_rows:
+        row["launches"] = kv_launch[row["name"]]
+    print(f"smoke wall {time.perf_counter() - T0:.1f} s")
+    kernels += flash_rows
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

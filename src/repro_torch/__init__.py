@@ -21,21 +21,35 @@ cards, gloo on CPU processes), called on every rank with the same data::
     labels, dists = make_predict_sharded(mesh)(model, new_x)
     res = make_fit_dense(mesh, cfg)(x, 0)      # the paper's table-sync fit
 
+Online KV-cache clustering inside an LM's decode (Qwen3-0.6B on the card,
+weights drawn from a seed or carried from ``repro``)::
+
+    from repro_torch import clustered_decode, get_arch, init_params
+
+    cfg = get_arch("qwen3_0_6b")
+    params = init_params(cfg, 0)               # device="cpu" for the plain path
+    out = clustered_decode(params, cfg, tokens, prompt_len=2048)
+    out["ppl"], out["mean_k_star"], out["compression"]
+
 The package imports ``torch``, ``numpy`` and the standard library only;
 its module layout mirrors ``repro``'s so each module's counterpart is
 found by name. The hand-written CUDA kernels live in
 ``repro_torch.kernels`` and are built on first use.
 """
 from repro_torch.checkpoint.manager import restore_model, save_model
+from repro_torch.configs import get_arch
 from repro_torch.core.api import (GEEK, DenseData, HeteroData, KernelAssigner,
                                   LSHBucketer, SILKSeeder, SparseData)
 from repro_torch.core.distributed import make_fit_dense, make_predict_sharded
 from repro_torch.core.geek import GeekConfig, GeekResult
 from repro_torch.core.model import GeekModel, predict
+from repro_torch.models.model import init_params
+from repro_torch.serve.kv_cluster import OnlineKVCluster, clustered_decode
 from repro_torch.utils.compat import Mesh, make_mesh
 
 __all__ = sorted(["DenseData", "GEEK", "GeekConfig", "GeekModel", "GeekResult",
                   "HeteroData", "KernelAssigner", "LSHBucketer", "Mesh",
-                  "SILKSeeder", "SparseData", "make_fit_dense", "make_mesh",
-                  "make_predict_sharded", "predict", "restore_model",
-                  "save_model"])
+                  "OnlineKVCluster", "SILKSeeder", "SparseData",
+                  "clustered_decode", "get_arch", "init_params",
+                  "make_fit_dense", "make_mesh", "make_predict_sharded",
+                  "predict", "restore_model", "save_model"])

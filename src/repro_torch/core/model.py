@@ -231,3 +231,35 @@ def predict(model: GeekModel, x, probes: int | None = None):
     if model.metric == "l2":
         return predict_l2(model, x)
     return predict_hamming(model, x)
+
+
+def update_centers(model: GeekModel, centers: torch.Tensor, *,
+                   radius: torch.Tensor | None = None,
+                   rebuild_index: bool = False) -> GeekModel:
+    """Swap a fitted model's centers (the online-drift hook).
+
+    Streaming consumers (``repro_torch.serve.kv_cluster``) move centers a
+    little every step (EMA drift) and a lot every refresh (re-fit). The
+    derived packed/one-hot caches are pure functions of the centers, so
+    they are re-derived here. ``radius`` replaces the fitted field when
+    given. ``rebuild_index`` asks for the center index, which is not
+    ported yet: it raises on a model that keeps one (``index_tables >
+    0``). Returns a new model; the input is untouched.
+    """
+    if tuple(centers.shape) != tuple(model.centers.shape):
+        raise ValueError(f"centers shape {tuple(centers.shape)} != fitted "
+                         f"{tuple(model.centers.shape)}")
+    if rebuild_index and model.index_tables > 0:
+        raise NotImplementedError("update_centers(rebuild_index=True) needs "
+                                  "the center index (ROADMAP.md, Queue 1 "
+                                  "item 9)")
+    packed, onehot = model.packed_centers, model.onehot_centers
+    if model.metric == "hamming":
+        if model.impl == "packed":
+            packed = pack_codes(centers, model.code_bits)
+        elif model.impl == "onehot":
+            onehot = onehot_codes(centers, 1 << model.code_bits)
+    return dataclasses.replace(
+        model, centers=centers,
+        radius=model.radius if radius is None else radius,
+        packed_centers=packed, onehot_centers=onehot)

@@ -1,0 +1,151 @@
+"""Flash attention and mass-weighted centroid attention, the hand-written
+CUDA kernels' wrappers.
+
+``flash_attention`` replaces ``repro/kernels/flash_attention.py::
+flash_attention`` (the TPU kernel ``_kernel`` under it): the causal or
+non-causal GQA online-softmax forward, float32 inside, output in q's
+dtype. In the port it runs the LM's prefill into an empty KV cache
+(``models.layers.cache_attention``), which the reference computes as a
+masked float32 softmax over the cache: the same function.
+
+``flash_centroid_attention`` replaces ``flash_centroid_attention``: the
+clustered-KV decode step ``softmax_K(q·c/√dh + log_mass) @ v_cent``
+(``serve.kv_cluster.clustered_attention``). The reference reuses its
+flash kernel through an augmented ``dh + 1`` lane; here ``log_mass`` is a
+bias added after the product, in the same tile routine.
+
+Bound on this card: the prefill's attention is bound by operations (8.6
+GFLOP causal against 12.6 MB at Qwen3-0.6B's S = 2,048), the decode
+step's by launch latency. Design (``csrc/flash_attention.cu``): one block
+per (64-query tile, query head, batch), 64-key tiles staged in shared
+memory as float32, float32 scores, running max, sum and accumulator,
+the loop ending at the causal frontier; ragged S and K masked in the
+kernel. The plain versions are ``ref.attention_ref`` and
+``ref.centroid_attention_ref``.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import build
+
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p,
+                                      ctypes.c_void_p, ctypes.c_int,
+                                      ctypes.c_float, ctypes.c_int,
+                                      ctypes.c_void_p])
+_CENTROID_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p,
+                                               ctypes.c_void_p,
+                                               ctypes.c_float, ctypes.c_int,
+                                               ctypes.c_void_p])
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_DH = 128
+
+
+def _entry(name: str, argtypes):
+    fn = getattr(build.load("flash_attention"), name)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return fn
+
+
+def _device_index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def _prepare(q, kv: tuple, what: str):
+    """Check the inputs; return them in one element type (q's when all
+    share a type the kernel takes, else float32), each with a contiguous
+    feature axis (other strides, broadcasts included, pass as they are)."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"{what} runs on CUDA tensors, got {dev}")
+    if any(t.device != dev for t in kv):
+        raise ValueError(f"{what}: inputs must share a device")
+    if q.ndim != 4 or any(t.ndim != 4 for t in kv):
+        raise ValueError(f"{what}: expected 4-d (B, H, S, dh) inputs")
+    B, Hq, _, dh = q.shape
+    shape = kv[0].shape
+    if any(t.shape != shape for t in kv) or shape[0] != B or shape[3] != dh:
+        raise ValueError(f"{what}: q {tuple(q.shape)} and keys/values "
+                         f"{[tuple(t.shape) for t in kv]} do not match")
+    if shape[1] == 0 or Hq % shape[1]:
+        raise ValueError(f"{what}: GQA needs Hkv | Hq, got {shape[1]}, {Hq}")
+    if not 1 <= dh <= MAX_DH:
+        raise ValueError(f"{what}: head dim {dh} not in [1, {MAX_DH}]")
+    types = {q.dtype, *(t.dtype for t in kv)}
+    if not types <= set(_DTYPES):
+        raise TypeError(f"{what}: expected float32 or bfloat16, got {types}")
+    dt = q.dtype if len(types) == 1 else torch.float32
+    out = [t.to(dt) for t in (q, *kv)]
+    return [t if t.stride(-1) == 1 else t.contiguous() for t in out], dt
+
+
+def _strides(*tensors) -> list[int]:
+    return [s for t in tensors for s in t.stride()[:3]]
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """Launch the kernel: q (B, Hq, S, dh), k and v (B, Hkv, S, dh), float32
+    or bfloat16 on one CUDA device, Hkv | Hq, dh ≤ 128. Returns (B, Hq, S,
+    dh) in q's dtype. Counts one launch in ``flash_attention.launches``."""
+    (qc, kc, vc), dt = _prepare(q, (k, v), "flash_attention")
+    B, Hq, S, dh = qc.shape
+    if kc.shape[2] != S:
+        raise ValueError(f"flash_attention: keys have {kc.shape[2]} rows, "
+                         f"queries {S}")
+    out = torch.empty((B, Hq, S, dh), dtype=dt, device=q.device)
+    if B * S == 0:
+        return out.to(q.dtype)
+    dims = (ctypes.c_longlong * 5)(B, Hq, kc.shape[1], S, dh)
+    strides = (ctypes.c_longlong * 9)(*_strides(qc, kc, vc))
+    err = _entry("repro_flash_attention", _ARGTYPES)(
+        qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(),
+        _DTYPES[dt], dims, strides, int(causal), 1.0 / math.sqrt(dh),
+        _device_index(q.device), torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "flash_attention")
+    flash_attention.launches += 1
+    return out.to(q.dtype)
+
+
+flash_attention.launches = 0
+
+
+def flash_centroid_attention(q: torch.Tensor, centers: torch.Tensor,
+                             v_cent: torch.Tensor,
+                             log_mass: torch.Tensor) -> torch.Tensor:
+    """Launch the kernel: ``softmax_K(q·c/√dh + log_mass) @ v_cent`` of q
+    (B, Hq, S, dh) over centers and v_cent (B, Hkv, K, dh), log_mass
+    (B, Hkv, K) (``-1e30`` = dead; all dead gives the mean of v_cent).
+    Returns (B, Hq, S, dh) in q's dtype. Counts one launch in
+    ``flash_centroid_attention.launches``."""
+    (qc, cc, vc), dt = _prepare(q, (centers, v_cent),
+                                "flash_centroid_attention")
+    B, Hq, S, dh = qc.shape
+    Hkv, K = cc.shape[1], cc.shape[2]
+    if tuple(log_mass.shape) != (B, Hkv, K) or log_mass.device != q.device:
+        raise ValueError(f"flash_centroid_attention: log_mass must be "
+                         f"({B}, {Hkv}, {K}) on {q.device}")
+    if K == 0:
+        raise ValueError("flash_centroid_attention: no centroid rows")
+    lm = log_mass.to(torch.float32)
+    if lm.stride(-1) != 1:
+        lm = lm.contiguous()
+    out = torch.empty((B, Hq, S, dh), dtype=dt, device=q.device)
+    if B * S == 0:
+        return out.to(q.dtype)
+    dims = (ctypes.c_longlong * 6)(B, Hq, Hkv, S, K, dh)
+    strides = (ctypes.c_longlong * 11)(*_strides(qc, cc, vc),
+                                       *lm.stride()[:2])
+    err = _entry("repro_flash_centroid_attention", _CENTROID_ARGTYPES)(
+        qc.data_ptr(), cc.data_ptr(), vc.data_ptr(), lm.data_ptr(),
+        out.data_ptr(), _DTYPES[dt], dims, strides, 1.0 / math.sqrt(dh),
+        _device_index(q.device), torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "flash_centroid_attention")
+    flash_centroid_attention.launches += 1
+    return out.to(q.dtype)
+
+
+flash_centroid_attention.launches = 0

@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.kernels import distance_argmin as _da
 from repro_torch.kernels import distance_argmin_hamming as _dh
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import minhash_buckets as _mh
 from repro_torch.kernels import ref as _ref
 
@@ -70,3 +71,19 @@ def minhash_even_buckets(ids, keys):
     if _on_cpu(ids):
         return _ref.minhash_even_buckets_ref(ids, keys)
     return _mh.minhash_even_buckets(ids, keys)
+
+
+def flash_attention(q, k, v, *, causal: bool = True):
+    """GQA attention of q (B, Hq, S, dh) over k, v (B, Hkv, S, dh), float32
+    inside, output in q's dtype: ``ref.attention_ref``'s function."""
+    if _on_cpu(q):
+        return _ref.attention_ref(q, k, v, causal=causal)
+    return _fa.flash_attention(q, k, v, causal=causal)
+
+
+def flash_centroid_attention(q, centers, v_cent, log_mass):
+    """``softmax_K(q·c/√dh + log_mass) @ v_cent`` of q (B, Hq, S, dh) over
+    (B, Hkv, K, dh) centroids: ``ref.centroid_attention_ref``'s function."""
+    if _on_cpu(q):
+        return _ref.centroid_attention_ref(q, centers, v_cent, log_mass)
+    return _fa.flash_centroid_attention(q, centers, v_cent, log_mass)

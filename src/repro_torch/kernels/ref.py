@@ -66,3 +66,41 @@ def minhash_segments_ref(ids_flat, offsets, keys):
     inside = (seg >= 0) & (seg < S)
     return minhash_over_segments(ids_flat, seg.clamp(0, max(S - 1, 0)), S,
                                  keys, valid=inside)
+
+
+def centroid_attention_ref(q, centers, v_cent, log_mass):
+    """q: (B, Hq, S, dh); centers/v_cent: (B, Hkv, K, dh); log_mass:
+    (B, Hkv, K). Mass-weighted non-causal float32 softmax over centroids
+    (GQA by repetition); ``log_mass = -1e30`` rows are excluded, and with
+    every row excluded the output is the mean of ``v_cent``. Output in
+    q's dtype."""
+    dh = q.shape[-1]
+    rep = q.shape[1] // centers.shape[1]
+    c = centers.repeat_interleave(rep, dim=1)
+    vc = v_cent.repeat_interleave(rep, dim=1)
+    lm = log_mass.repeat_interleave(rep, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32),
+                     c.to(torch.float32)) / (dh ** 0.5)
+    s = s + lm[:, :, None, :].to(torch.float32)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p,
+                        vc.to(torch.float32)).to(q.dtype)
+
+
+def attention_ref(q, k, v, *, causal=True):
+    """q: (B, Hq, S, dh); k, v: (B, Hkv, S, dh). float32 softmax, GQA by
+    head repetition, keys past each query masked to -1e30 when causal.
+    Output in q's dtype."""
+    S, dh = q.shape[2], q.shape[3]
+    rep = q.shape[1] // k.shape[1]
+    k = k.repeat_interleave(rep, dim=1)
+    v = v.repeat_interleave(rep, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32),
+                     k.to(torch.float32)) / (dh ** 0.5)
+    if causal:
+        mask = torch.tril(torch.ones((S, S), dtype=torch.bool,
+                                     device=q.device))
+        s = torch.where(mask[None, None], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p,
+                        v.to(torch.float32)).to(q.dtype)

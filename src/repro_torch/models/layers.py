@@ -1,0 +1,250 @@
+"""Transformer layers of the LM substrate: RMSNorm, RoPE, GQA attention
+(+qk-norm, +bias, +KV cache), SwiGLU/GELU MLP, embeddings (the
+counterpart of ``repro.models.layers``).
+
+Plain functions on tensors and dictionaries of tensors. Weights keep the
+reference's ``(in, out)`` layout, so a layer is ``x @ w`` in both
+packages. The reference's ``*_spec`` functions, ``sharding.constrain``
+and ``chunked_cross_entropy`` wait for the training slice (ROADMAP.md).
+
+KV caches are updated in place (the reference returns new arrays): a
+decode step writes one row per layer instead of copying the cache.
+``cache_len`` is a Python int, the number of rows already cached.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops as kops
+from repro_torch.models.config import ArchConfig
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_NEG = -1e30
+
+
+def dtype_of(cfg: ArchConfig) -> torch.dtype:
+    """The parameter and activation dtype of ``cfg``."""
+    return _DTYPES[cfg.dtype]
+
+
+def normal(gen, shape, std: float, dtype, device) -> torch.Tensor:
+    """Standard normal draws times ``std``, cast to ``dtype`` (on the
+    ``meta`` device: shapes only, no draws, for ``count_params``)."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
+    return (torch.randn(shape, generator=gen, device=device) * std).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """float32 statistics, cast back to ``x.dtype``, then times ``scale``
+    (that order decides the bf16 rounding, as in the reference)."""
+    h = x.to(torch.float32)
+    var = torch.mean(h * h, dim=-1, keepdim=True)
+    return (h * torch.rsqrt(var + eps)).to(x.dtype) * scale
+
+
+def norm_init(cfg: ArchConfig, device="cpu"):
+    return {"scale": torch.ones((cfg.d_model,), dtype=dtype_of(cfg),
+                                device=device)}
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (B, S, H, hd); positions: (B, S) integers. A bf16 ``x`` times
+    the float32 angles promotes to float32 and is cast back."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=x.device) / half)
+    ang = positions[..., None].to(torch.float32) * freq        # (B, S, half)
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA + optional qk-norm / qkv-bias + KV cache)
+# ---------------------------------------------------------------------------
+
+def attn_init(gen, cfg: ArchConfig, device="cpu"):
+    hd = cfg.resolved_head_dim
+    d, hq, hkv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    std = d ** -0.5
+    dt = dtype_of(cfg)
+    p = {"wq": normal(gen, (d, hq * hd), std, dt, device),
+         "wk": normal(gen, (d, hkv * hd), std, dt, device),
+         "wv": normal(gen, (d, hkv * hd), std, dt, device),
+         "wo": normal(gen, (hq * hd, d), std, dt, device)}
+    if cfg.qkv_bias:
+        p |= {"bq": torch.zeros((hq * hd,), dtype=dt, device=device),
+              "bk": torch.zeros((hkv * hd,), dtype=dt, device=device),
+              "bv": torch.zeros((hkv * hd,), dtype=dt, device=device)}
+    if cfg.qk_norm:
+        p |= {"q_norm": torch.ones((hd,), dtype=dt, device=device),
+              "k_norm": torch.ones((hd,), dtype=dt, device=device)}
+    return p
+
+
+def attn_qkv(p, x: torch.Tensor, cfg: ArchConfig, *, positions: torch.Tensor):
+    """Project x to per-head q/k/v with bias, qk-norm and RoPE applied.
+
+    The shared front half of ``attn_apply``, on its own so that attention
+    overrides (``repro_torch.serve.kv_cluster``) consume the post-RoPE
+    q/k/v the standard path caches.
+
+    Returns (q (B, S, Hq, hd), k (B, S, Hkv, hd), v (B, S, Hkv, hd)).
+    """
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, S, hq, hd)
+    k = k.reshape(B, S, hkv, hd)
+    v = v.reshape(B, S, hkv, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def cache_write(cache: dict, k: torch.Tensor, v: torch.Tensor,
+                cache_len: int) -> dict:
+    """Write the fresh (B, S, Hkv, hd) K/V at rows ``cache_len`` onwards,
+    in place; returns ``cache``."""
+    S = k.shape[1]
+    cache["k"][:, cache_len:cache_len + S] = k
+    cache["v"][:, cache_len:cache_len + S] = v
+    return cache
+
+
+def cache_attention(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor, *,
+                    positions: torch.Tensor, cache_len: int) -> torch.Tensor:
+    """Attention of (B, S, Hq, hd) queries over a (B, Smax, Hkv, hd) cache
+    that already holds them, in float32: keys past each query's absolute
+    position weigh exactly 0. Returns (B, S, Hq, hd) in ``q.dtype``.
+
+    A prefill into an empty cache (``cache_len == 0``, S > 1, positions
+    ``0..S-1``) attends causally over the S fresh rows only, the same
+    function: ``ops.flash_attention``, the hand-written kernel on the
+    card. Otherwise (decode, S == 1) the softmax runs over the whole
+    cache in plain torch ops, as the reference computes it outside any
+    kernel.
+    """
+    S = q.shape[1]
+    if cache_len == 0 and S > 1:
+        o = kops.flash_attention(q.transpose(1, 2), kc[:, :S].transpose(1, 2),
+                                 vc[:, :S].transpose(1, 2), causal=True)
+        return o.transpose(1, 2)
+    return cache_attention_ref(q, kc, vc, positions=positions)
+
+
+def cache_attention_ref(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
+                        *, positions: torch.Tensor) -> torch.Tensor:
+    """The reference's cache branch: a softmax over the whole cache with
+    keys past each query's position masked to -1e30, in float32 (float64
+    for float64 inputs). Returns (B, S, Hq, hd) in ``q.dtype``."""
+    B, S, hq, hd = q.shape
+    Smax, hkv = kc.shape[1], kc.shape[2]
+    ct = torch.promote_types(q.dtype, torch.float32)
+    qg = q.reshape(B, S, hkv, hq // hkv, hd)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(ct), kc.to(ct)) * hd ** -0.5
+    keymask = (torch.arange(Smax, device=q.device)[None, None, :]
+               <= positions[:, :, None])                     # (B, S, Smax)
+    s = torch.where(keymask[:, None, None, :, :], s, _NEG)
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", w, vc.to(ct))
+    return o.reshape(B, S, hq, hd).to(q.dtype)
+
+
+def attn_apply(p, x: torch.Tensor, cfg: ArchConfig, *, positions: torch.Tensor,
+               cache: dict | None = None, cache_len: int | None = None,
+               return_kv: bool = False):
+    """x: (B, S, d). Without a cache: causal full attention over x, with
+    bf16 operands and float32 statistics (``return_kv`` hands back the
+    fresh K/V). With a cache (B, Smax, Hkv, hd) holding ``cache_len``
+    rows: the fresh K/V are written into it and attended with the cached
+    ones (``cache_attention``). Returns (y, new_cache)."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    q, k, v = attn_qkv(p, x, cfg, positions=positions)
+    if cache is None:
+        # bf16 operands, float32 products and sums (exact products of
+        # bf16 values), as the reference's preferred_element_type=f32
+        qg = q.reshape(B, S, hkv, hq // hkv, hd)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(torch.float32),
+                         k.to(torch.float32)) * hd ** -0.5
+        causal = torch.tril(torch.ones((S, S), dtype=torch.bool,
+                                       device=x.device))
+        s = torch.where(causal, s, _NEG)
+        w = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhgqk,bkhd->bqhgd", w.to(x.dtype).to(torch.float32),
+                         v.to(torch.float32))
+        o = o.reshape(B, S, hq * hd).to(x.dtype)
+        new_cache = {"k": k, "v": v} if return_kv else None
+    else:
+        cache_write(cache, k, v, cache_len)
+        o = cache_attention(q, cache["k"], cache["v"], positions=positions,
+                            cache_len=cache_len)
+        o = o.reshape(B, S, hq * hd).to(x.dtype)
+        new_cache = cache
+    return o @ p["wo"], new_cache
+
+
+def attn_cache_init(cfg: ArchConfig, batch: int, max_len: int, device="cpu"):
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    dt = dtype_of(cfg)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU or GELU)
+# ---------------------------------------------------------------------------
+
+def mlp_init(gen, cfg: ArchConfig, device="cpu"):
+    d = cfg.d_model
+    f = cfg.d_ff_dense or cfg.d_ff
+    dt = dtype_of(cfg)
+    p = {}
+    if cfg.mlp_variant == "swiglu":
+        p["gate"] = normal(gen, (d, f), d ** -0.5, dt, device)
+    p["up"] = normal(gen, (d, f), d ** -0.5, dt, device)
+    p["down"] = normal(gen, (f, d), f ** -0.5, dt, device)
+    return p
+
+
+def mlp_apply(p, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU when ``p`` has a gate, else GELU (tanh form, JAX's default)."""
+    if "gate" in p:
+        return (F.silu(x @ p["gate"]) * (x @ p["up"])) @ p["down"]
+    return F.gelu(x @ p["up"], approximate="tanh") @ p["down"]
+
+
+# ---------------------------------------------------------------------------
+# Embedding + LM head
+# ---------------------------------------------------------------------------
+
+def embed_init(gen, cfg: ArchConfig, device="cpu"):
+    return {"w": normal(gen, (cfg.padded_vocab, cfg.d_model),
+                        cfg.d_model ** -0.5, dtype_of(cfg), device)}
+
+
+def head_init(gen, cfg: ArchConfig, device="cpu"):
+    return {"w": normal(gen, (cfg.d_model, cfg.padded_vocab),
+                        cfg.d_model ** -0.5, dtype_of(cfg), device)}

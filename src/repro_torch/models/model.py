@@ -1,0 +1,115 @@
+"""Top-level model API: init / forward / prefill / decode (the counterpart
+of ``repro.models.model``).
+
+Parameters are a dictionary: ``layers`` (one dictionary per layer),
+``final_norm``, ``head`` and, for token inputs, ``embed``. Weights from
+the reference carry across with ``models.convert.params_from_numpy``.
+The training loss (``chunked_cross_entropy``) waits for the training
+slice (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+from repro_torch.models.config import ArchConfig
+from repro_torch.utils.device import full_precision_matmul, resolve_device
+
+
+def has_token_embed(cfg: ArchConfig) -> bool:
+    """Stub frontends (vlm/audio) feed precomputed embeddings directly."""
+    return cfg.frontend is None
+
+
+def _init(cfg: ArchConfig, gen, device):
+    p = {"layers": T.stack_init(gen, cfg, device),
+         "final_norm": L.norm_init(cfg, device=device),
+         "head": L.head_init(gen, cfg, device)}
+    if has_token_embed(cfg):
+        p["embed"] = L.embed_init(gen, cfg, device)
+    return p
+
+
+def init_params(cfg: ArchConfig, generator, device=None):
+    """Random parameters with the reference's std formulas, drawn from
+    ``generator`` (a ``torch.Generator`` on the device's type, or an int
+    seed). ``device=None`` means ``cuda`` and raises without a card."""
+    dev = resolve_device(device)
+    if not isinstance(generator, torch.Generator):
+        generator = torch.Generator(device=dev).manual_seed(int(generator))
+    return _init(cfg, generator, dev)
+
+
+def forward(params, cfg: ArchConfig, inputs, *, positions=None, caches=None,
+            cache_len=None, attn_override=None):
+    """inputs: (B, S) int tokens, or (B, S, d) embeddings for stub
+    frontends. Returns (hidden (B, S, d), new_caches, aux). With
+    ``caches`` (``T.stack_cache_init``) the fresh K/V are written at rows
+    ``cache_len`` (an int) onwards, in place. ``attn_override`` is
+    threaded to ``T.stack_apply``. float32 products stay full float32 on
+    the card (no TF32)."""
+    full_precision_matmul()
+    if inputs.ndim == 2:
+        x = params["embed"]["w"][inputs.to(torch.long)]
+    else:
+        x = inputs.to(L.dtype_of(cfg))
+    B, S = x.shape[:2]
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=x.device).expand(B, S)
+    x, new_caches, aux = T.stack_apply(params["layers"], x, cfg,
+                                       positions=positions, caches=caches,
+                                       cache_len=cache_len,
+                                       attn_override=attn_override)
+    x = L.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+    return x, new_caches, aux
+
+
+def prefill_step(params, cfg: ArchConfig, inputs):
+    """Process a full prompt; return last-token float32 logits and caches
+    seeded with the prompt (sized to the prompt length)."""
+    B, S = inputs.shape[:2]
+    device = params["head"]["w"].device
+    caches = T.stack_cache_init(cfg, B, S, device)
+    x, new_caches, _ = forward(params, cfg, inputs, caches=caches, cache_len=0)
+    logits = (x[:, -1] @ params["head"]["w"]).to(torch.float32)
+    return logits, new_caches
+
+
+def decode_step(params, cfg: ArchConfig, caches, cache_len: int, tokens,
+                attn_override=None):
+    """One decode step. tokens: (B, 1) ids or (B, 1, d) stub embeddings;
+    ``cache_len``: tokens already in the cache (an int). Returns (logits
+    (B, V) float32, caches), the caches updated in place.
+    ``attn_override`` swaps the attention step per layer (see
+    ``T.stack_apply``)."""
+    B = tokens.shape[0]
+    positions = torch.full((B, 1), cache_len, dtype=torch.int32,
+                           device=params["head"]["w"].device)
+    x, new_caches, _ = forward(params, cfg, tokens, positions=positions,
+                               caches=caches, cache_len=cache_len,
+                               attn_override=attn_override)
+    logits = (x[:, -1] @ params["head"]["w"]).to(torch.float32)
+    return logits, new_caches
+
+
+def count_params(cfg: ArchConfig) -> int:
+    """Total parameter count (shapes only, on the ``meta`` device)."""
+    return sum(math.prod(t.shape)
+               for t in leaves(_init(cfg, None, torch.device("meta"))))
+
+
+def leaves(tree):
+    """The tensors of a parameter or cache tree (dicts and lists), in
+    order."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from leaves(v)
+    else:
+        for v in tree:
+            yield from leaves(v)

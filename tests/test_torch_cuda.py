@@ -378,3 +378,151 @@ def test_sharded_fits_on_one_rank_nccl_equal_incore(cuda_device, tmp_path):
         assert int(ts.k_star) > 0 and int(ts.overflow) == 0
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# flash attention and centroid attention (kernels 7 and 6)
+# ---------------------------------------------------------------------------
+
+# tolerances: float32 at 2e-4, the reference's own sweep (online against
+# two-pass softmax); bfloat16 at one bf16 ulp (2^-7 relative): kernel and
+# plain version each round a float32 result once
+FA_F32 = dict(rtol=2e-4, atol=2e-4)
+FA_BF16 = dict(rtol=2.0**-7, atol=1e-6)
+ATTN_SWEEP = [(1, 4, 4, 128, 32), (2, 8, 2, 100, 64), (1, 6, 1, 65, 64),
+              (1, 2, 1, 70, 128), (1, 3, 3, 5, 20), (1, 16, 8, 2048, 64)]
+CENTROID_SWEEP = [(1, 4, 4, 1, 48, 32), (2, 4, 2, 3, 100, 64),
+                  (1, 3, 1, 40, 33, 16), (1, 16, 8, 1, 65, 64),
+                  (1, 2, 1, 1, 200, 128)]
+
+
+def _fa_close(got, want, dtype):
+    got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
+    assert np.all(np.isfinite(got))
+    np.testing.assert_allclose(got, want, **(FA_F32 if dtype == torch.float32
+                                             else FA_BF16))
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,dh", ATTN_SWEEP)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(cuda_device, B, Hq, Hkv, S, dh,
+                                              causal, dtype):
+    from repro_torch.kernels import flash_attention as tfa
+    gen = torch.Generator(device=cuda_device).manual_seed(S * dh)
+    q, k, v = (torch.randn((B, h, S, dh), generator=gen, device=cuda_device)
+               .to(dtype) for h in (Hq, Hkv, Hkv))
+    before = tfa.flash_attention.launches
+    got = tfa.flash_attention(q, k, v, causal=causal)
+    assert tfa.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == (B, Hq, S, dh)
+    _fa_close(got, tref.attention_ref(q, k, v, causal=causal), dtype)
+
+
+def test_flash_attention_kernel_takes_strided_views(cuda_device):
+    """The LM's (B, S, H, dh) layout, transposed, goes in as it is."""
+    from repro_torch.kernels import flash_attention as tfa
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    q = torch.randn((1, 130, 4, 32), generator=gen, device=cuda_device)
+    kv = torch.randn((1, 130, 2, 32), generator=gen, device=cuda_device)
+    got = tfa.flash_attention(q.transpose(1, 2), kv.transpose(1, 2),
+                              kv.transpose(1, 2))
+    want = tref.attention_ref(q.transpose(1, 2).contiguous(),
+                              kv.transpose(1, 2).contiguous(),
+                              kv.transpose(1, 2).contiguous())
+    _fa_close(got, want, torch.float32)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,K,dh", CENTROID_SWEEP)
+@pytest.mark.parametrize("dead", ["some", "all"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_centroid_kernel_matches_plain(cuda_device, B, Hq, Hkv, S, K, dh, dead,
+                                       dtype):
+    """GQA, ragged S and K, 5 dead rows or all rows dead (the mean of the
+    values), bf16 queries over float32 centroids (the decode step's mix)."""
+    from repro_torch.kernels import flash_attention as tfa
+    gen = torch.Generator(device=cuda_device).manual_seed(K * dh)
+    q = torch.randn((B, Hq, S, dh), generator=gen, device=cuda_device).to(dtype)
+    c, vc = (torch.randn((B, Hkv, K, dh), generator=gen, device=cuda_device)
+             for _ in range(2))
+    lm = torch.log1p(8.0 * torch.rand((B, Hkv, K), generator=gen,
+                                      device=cuda_device))
+    lm[..., (K - 5 if dead == "some" else 0):] = -1e30
+    before = tfa.flash_centroid_attention.launches
+    got = tfa.flash_centroid_attention(q, c, vc, lm)
+    assert tfa.flash_centroid_attention.launches == before + 1
+    assert got.dtype == dtype
+    _fa_close(got, tref.centroid_attention_ref(q, c, vc, lm), dtype)
+    if dead == "all":
+        mean = vc.mean(2, keepdim=True).repeat_interleave(Hq // Hkv, 1)
+        _fa_close(got, mean.expand_as(got).to(dtype), dtype)
+
+
+def test_centroid_kernel_takes_broadcast_centroids(cuda_device):
+    """Centroids shared across the batch (stride 0), as
+    ``clustered_attention`` passes them."""
+    from repro_torch.kernels import flash_attention as tfa
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    q = torch.randn((3, 4, 1, 64), generator=gen, device=cuda_device)
+    c, vc = (torch.randn((2, 20, 64), generator=gen, device=cuda_device)
+             .expand(3, 2, 20, 64) for _ in range(2))
+    lm = torch.zeros((2, 20), device=cuda_device).expand(3, 2, 20)
+    _fa_close(tfa.flash_centroid_attention(q, c, vc, lm),
+              tref.centroid_attention_ref(q, c.contiguous(), vc.contiguous(),
+                                          lm.contiguous()), torch.float32)
+
+
+def test_lm_paths_on_card_run_the_flash_kernels(cuda_device):
+    """A smoke LM on the card: the prefill runs kernel 7 once per layer
+    and equals the same forward on the CPU; clustered decode runs kernel 6
+    once per layer per step, and k* per head equals the CPU run's (the same
+    draws: the fits' seeds are the generator's on each device, so both are
+    handed one bucketer's arrays). float32 products stay full float32
+    (``forward`` turns TF32 off)."""
+    import dataclasses
+
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.models import model as tm
+    from repro_torch.serve import kv_cluster as tkv
+    cfg = dataclasses.replace(rt.get_arch("qwen3_0_6b", smoke=True),
+                              num_layers=2)
+    cpu = tm.init_params(cfg, 0, device="cpu")
+    card = _to(cpu, cuda_device)
+    tok = torch.randint(0, cfg.vocab_size, (1, 90),
+                        generator=torch.Generator().manual_seed(0))
+    before = tfa.flash_attention.launches
+    lc, _ = tm.prefill_step(card, cfg, tok[:, :80].to(cuda_device))
+    assert tfa.flash_attention.launches == before + cfg.num_layers
+    assert not torch.backends.cuda.matmul.allow_tf32
+    lp, _ = tm.prefill_step(cpu, cfg, tok[:, :80])
+    np.testing.assert_allclose(lc.cpu().numpy(), lp.numpy(), rtol=1e-4,
+                               atol=1e-4 * float(lp.abs().max()))
+    rng = np.random.default_rng(0)
+    a = rng.standard_normal((cfg.resolved_head_dim, 16)).astype(np.float32)
+    keys = rng.integers(0, 2**32, (6, 3, 2), dtype=np.uint64).astype(np.uint32)
+
+    def draws(device):
+        return lambda layer, h, fits: InjectedBucketer(
+            a=torch.from_numpy(a).to(device), table_keys=carrier(keys).to(device))
+
+    gcfg = tkv.default_kv_config(16)
+    before = tfa.flash_centroid_attention.launches
+    on_card = tkv.clustered_decode(card, cfg, tok, 80, gcfg=gcfg,
+                                   refresh_every=6, draws=draws(cuda_device))
+    assert tfa.flash_centroid_attention.launches == \
+        before + cfg.num_layers * 10
+    on_cpu = tkv.clustered_decode(cpu, cfg, tok, 80, gcfg=gcfg,
+                                  refresh_every=6, draws=draws("cpu"),
+                                  device="cpu")
+    assert on_card["k_stars"] == on_cpu["k_stars"]
+    assert min(on_card["k_stars"]) > 0 and max(on_card["overflows"]) == 0
+    assert on_card["ppl"] == pytest.approx(on_cpu["ppl"], rel=1e-3)
+
+
+def _to(tree, device):
+    """A parameter tree (dicts and lists of tensors) on ``device``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return [_to(v, device) for v in tree]

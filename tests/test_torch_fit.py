@@ -179,7 +179,10 @@ def test_fixture_restores_in_port_and_predicts_reference_labels():
 
 def _port_files():
     src = os.path.join(ROOT, "src", "repro_torch")
+    tools = os.path.join(ROOT, "tools")
     out = [os.path.join(ROOT, "chip_smoke.py")]
+    out += [os.path.join(tools, f) for f in sorted(os.listdir(tools))
+            if f.startswith("profile_torch_") and f.endswith(".py")]
     for d, _, files in os.walk(src):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return out
@@ -213,6 +216,18 @@ def test_entry_points_refuse_to_run_without_a_card(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         rt.restore_model(os.path.join(FIXTURE, "ckpt"))
     rt.GEEK(cfg, device="cpu")   # the explicit CPU path still works
+    lm = rt.get_arch("smollm_360m", smoke=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rt.init_params(lm, 0)
+    keys = torch.zeros((16, 8))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rt.OnlineKVCluster().start(keys, keys)
+    params = rt.init_params(lm, 0, device="cpu")
+    tokens = torch.zeros((1, 8), dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rt.clustered_decode(params, lm, tokens, 4)
+    assert rt.clustered_decode(params, lm, tokens, 4, mode="exact",
+                               device="cpu")["steps"] == 4
 
 
 def test_modes_not_ported_yet_raise(fits):
