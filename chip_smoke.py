@@ -83,6 +83,18 @@ PACKED_OPS = {1: (2, 1), 2: (4, 1), 4: (5, 1), 8: (5, 1), 16: (5, 1),
 
 N_FIT, N_FRESH, D, K_TRUE = 1_000_000, 65_536, 128, 64
 L2_SHAPES = [(64, 8, 16), (130, 33, 70), (257, 128, 128), (100, 5, 960)]
+# validity layouts that the L2 kernels' skipping of wholly dead 64-center
+# tiles must keep: name -> (k, valid of arange(k)); each run at n not a
+# multiple of the 128 rows a block, rows resident (d <= 256, 16-byte
+# aligned or not) and chunked (d = 960)
+DEAD_TILE_LAYOUTS = {
+    "live prefix": (1024, lambda i: i < 158),
+    "leading dead tiles": (300, lambda i: i >= 150),
+    "dead tile between live ones": (200, lambda i: (i < 40) | (i >= 140)),
+    "all dead": (130, lambda i: torch.zeros_like(i, dtype=torch.bool)),
+    "k not a multiple of the tile": (70, lambda i: i % 7 != 3),
+}
+LAYOUT_SHAPES = [(20_001, 128), (3_001, 70), (1_001, 960)]
 # the accumulating kernel's sweep: k not a multiple of the 64-center tile,
 # more rows than its 256 slots hold tiles, and the main path's k_max
 ACC_SHAPES = L2_SHAPES + [(20_000, 70, 128), (40_000, 1024, 128)]
@@ -118,15 +130,15 @@ FA_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (2.0**-7, 1e-6)}
 # the KV-cache serving path: Qwen3-0.6B at full width, one sequence
 KV_ARCH, KV_PROMPT, KV_DECODE, KV_KMAX = "qwen3_0_6b", 2048, 64, 64
 KV_EMA, KV_REFRESH = 0.1, 32
-# the prefill's logits through kernel 7 against the plain attention on the
-# card, relative L2 error. Each layer rounds its attention output to bf16,
-# and where the two float32 results straddle a rounding boundary a one-ulp
-# difference enters the residual stream and grows through the 28
-# random-weight layers: 0.0166 measured on an H100, of the order of the
-# same forward with the plain attention in float64 (0.0183, printed beside
-# it). Two faults planted in the plain attention (no causal mask; every
-# query head on the next kv head) run beside it and must land above the
-# limit: 1.26 and 1.39 measured on an H100.
+# the prefill's logits through the flash-attention kernel against the plain
+# attention on the card, relative L2 error. Each layer rounds its attention
+# output to bf16, and where the two float32 results straddle a rounding
+# boundary a one-ulp difference enters the residual stream and grows through
+# the 28 random-weight layers: 0.0166-0.0177 measured on an H100, of the
+# order of the same forward with the plain attention in float64 (0.0177-
+# 0.0183, printed beside it). Two faults planted in the plain attention (no
+# causal mask; every query head on the next kv head) run beside it and must
+# land above the limit: 1.26-1.34 and 1.39-1.43 measured on an H100.
 KV_LOGIT_RTOL = 0.1
 KV_FAULTS = ("non-causal", "next kv head")
 # layers whose clustered attention is held to the error bound
@@ -150,6 +162,21 @@ def cuda_ms(fn, iters):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters, match=""):
+    """Device time (ms) per call of ``fn`` spent in kernels whose name
+    contains ``match`` (all kernels for ""), from ``torch.profiler`` over
+    ``iters`` calls after one warm-up call: no host time in it."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if match in e.key) / iters / 1e3
 
 
 def l2_agreement(x, c, valid, kernel, plain):
@@ -306,6 +333,21 @@ def bound(nbytes, op_times):
         else "operations"
 
 
+def sass_counts(lib, function, opcodes):
+    """{opcode: count} in the SASS of the kernels of ``lib`` whose name
+    contains ``function`` (``cuobjdump -sass``, beside ``nvcc``)."""
+    from repro_torch.kernels import build
+    exe = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    sass = subprocess.run([exe, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts = dict.fromkeys(opcodes, 0)
+    for part in sass.split("Function : ")[1:]:
+        if function in part.split("\n", 1)[0]:
+            for op in opcodes:
+                counts[op] += part.count(f" {op}")
+    return counts
+
+
 def reset_launches(*kernels):
     for k in kernels:
         k.launches = 0
@@ -402,8 +444,10 @@ def flash_phase(dev, gen):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     fa_err = cent_err = 0.0
+    took = {}
     for B, Hq, Hkv, S, dh in FA_SHAPES + [(1, 16, 8, KV_PROMPT, 64)]:
         for dtype in (torch.float32, torch.bfloat16):
+            before = dict(fa.flash_attention.by_routine)
             q, k, v = (randn(B, h, S, dh, dtype=dtype) for h in (Hq, Hkv, Hkv))
             for causal in (True, False):
                 fa_err = max(fa_err, fa_check(
@@ -411,8 +455,15 @@ def flash_phase(dev, gen):
                     ref.attention_ref(q, k, v, causal=causal),
                     f"flash_attention {(B, Hq, Hkv, S, dh)} {dtype} "
                     f"causal={causal}"))
+            took[dtype] = [r for r, n in fa.flash_attention.by_routine.items()
+                           if n > before[r]]
+            if took[dtype] != [fa.ROUTINES[dtype]]:
+                raise AssertionError(f"flash_attention {dtype} took "
+                                     f"{took[dtype]}")
         print(f"  flash_attention ({B},{Hq},{Hkv},{S},{dh}): float32 and "
               "bfloat16, causal and not, within tolerance")
+    print(f"  routines taken: float32 -> {took[torch.float32][0]}; bfloat16 "
+          f"-> {took[torch.bfloat16][0]}")
     for B, Hq, Hkv, S, K, dh in CENT_SHAPES + [(1, 16, 8, 1, KV_KMAX + 1, 64)]:
         for dtype in (torch.float32, torch.bfloat16):
             q = randn(B, Hq, S, dh, dtype=dtype)
@@ -431,8 +482,8 @@ def flash_phase(dev, gen):
               "float32 and bfloat16 queries, 5 dead and all dead (= the "
               "mean of the values), within tolerance")
 
-    # kernel 7 at the prefill's inputs: Qwen3-0.6B's layer layout (B, S, H,
-    # dh) in bf16, seen transposed as the port passes it
+    # flash_attention at the prefill's inputs: Qwen3-0.6B's layer layout
+    # (B, S, H, dh) in bf16, seen transposed as the port passes it
     B, Hq, Hkv, S, dh = 1, 16, 8, KV_PROMPT, 64
     q = randn(B, S, Hq, dh, dtype=torch.bfloat16).transpose(1, 2)
     k, v = (randn(B, S, Hkv, dh, dtype=torch.bfloat16).transpose(1, 2)
@@ -446,12 +497,20 @@ def flash_phase(dev, gen):
     fa_bound, fa_by = bound(2.0 * dh * S * (2 * Hq + 2 * Hkv) * B,
                             [4.0 * B * Hq * dh * S * (S + 1) / 2
                              / PEAK_BF16_FLOPS])
+    fa_dev = device_ms(lambda: fa.flash_attention(q, k, v, causal=True), 20,
+                       "flash_attention_bf16_kernel")
+    sdpa_dev = device_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), 20, "sdpa")
     print(f"  flash_attention at ({B},{Hq},{Hkv},{S},{dh}) bf16 causal: "
           f"kernel {fa_ms:.4f} ms, plain {fa_plain_ms:.4f} ms, SDPA "
-          f"{fa_lib_ms:.4f} ms, bound {fa_bound:.4f} ms ({fa_by})")
+          f"{fa_lib_ms:.4f} ms (kernel / SDPA {fa_ms / fa_lib_ms:.2f}), bound "
+          f"{fa_bound:.4f} ms ({fa_by}); device time alone (torch.profiler): "
+          f"kernel {fa_dev:.4f} ms, SDPA's kernel {sdpa_dev:.4f} ms (kernel / "
+          f"SDPA {fa_dev / sdpa_dev:.2f})")
 
-    # kernel 6 at a decode step's inputs: bf16 queries (a transposed view),
-    # float32 centroids of k_max rows plus the step's own row, log-mass
+    # flash_centroid_attention at a decode step's inputs: bf16 queries (a
+    # transposed view), float32 centroids of k_max rows plus the step's own
+    # row, log-mass
     K = KV_KMAX + 1
     q = randn(B, 1, Hq, dh, dtype=torch.bfloat16).transpose(1, 2)
     c, vc = randn(B, Hkv, K, dh), randn(B, Hkv, K, dh)
@@ -539,11 +598,12 @@ def kv_path(rt, dev, gen, all_kernels):
                            device=dev)
     prompt = tokens[:, :KV_PROMPT]
 
-    # the prefill's logits through kernel 7 against the plain attention
+    # the prefill's logits through flash_attention against the plain attention
     before = fa.flash_attention.launches
     logits_k, _ = M.prefill_step(params, cfg, prompt)
     if fa.flash_attention.launches != before + cfg.num_layers:
-        raise AssertionError("the prefill did not run kernel 7 once a layer")
+        raise AssertionError("the prefill did not run flash_attention once a "
+                             "layer")
     plain = {}
     for run in (torch.float32, torch.float64) + KV_FAULTS:
         caches = T.stack_cache_init(cfg, 1, KV_PROMPT, dev)
@@ -560,7 +620,7 @@ def kv_path(rt, dev, gen, all_kernels):
     rel = rel_to_plain(logits_k)
     faults = {f: rel_to_plain(plain[f]) for f in KV_FAULTS}
     agree = bool(logits_k.argmax() == logits_p.argmax())
-    print(f"  prefill logits, kernel 7 vs plain attention: relative L2 "
+    print(f"  prefill logits, flash_attention vs plain attention: relative L2 "
           f"{rel:.3g} (tolerance {KV_LOGIT_RTOL}; plain float64 vs float32 "
           f"attention {rel_to_plain(plain[torch.float64]):.3g}; planted "
           f"faults {', '.join(f'{f} {e:.3g}' for f, e in faults.items())}), "
@@ -572,6 +632,21 @@ def kv_path(rt, dev, gen, all_kernels):
         raise AssertionError(f"a planted fault passes the logit check: "
                              f"{faults}")
     del x, logits_k, logits_p, caches, plain
+
+    # where the prefill's time goes: its wall time on a synchronized host
+    # clock against the device time of its kernels
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    M.prefill_step(params, cfg, prompt)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    dev_all = device_ms(lambda: M.prefill_step(params, cfg, prompt), 3)
+    dev_fa = device_ms(lambda: M.prefill_step(params, cfg, prompt), 3,
+                       "flash_attention_bf16_kernel")
+    print(f"  prefill: wall {wall_ms:.2f} ms; device time of its kernels "
+          f"{dev_all:.2f} ms, of which flash_attention {dev_fa:.2f} ms "
+          f"({cfg.num_layers} calls); device busy {dev_all / wall_ms:.1%} "
+          "of the wall")
 
     runs, launches = {}, {}
     for mode in ("exact", "clustered"):
@@ -612,10 +687,12 @@ def kv_path(rt, dev, gen, all_kernels):
         raise AssertionError(f"refreshes {clus['refreshes']}")
     if lx["flash_attention"] != cfg.num_layers or \
             lc["flash_attention"] != cfg.num_layers:
-        raise AssertionError("kernel 7 did not launch once a layer per prefill")
+        raise AssertionError("flash_attention did not launch once a layer per "
+                             "prefill")
     if lc["flash_centroid_attention"] != cfg.num_layers * KV_DECODE or \
             lx["flash_centroid_attention"] != 0:
-        raise AssertionError("kernel 6 did not launch once a layer per step")
+        raise AssertionError("flash_centroid_attention did not launch once a "
+                             "layer per step")
     if lc["distance_argmin_l2"] <= 0 or lc["minhash_segments"] <= 0:
         raise AssertionError("the fits did not run the L2 and MinHash kernels")
 
@@ -714,8 +791,16 @@ def main():
     print(f"built {list(build.SOURCES)} in {secs:.2f} s (nvcc, sm_90a)")
     for name, log in build.ptxas_log.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line or "registers" in line or \
+                    "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
+    # the bf16 flash routine runs its products on the tensor cores (HMMA)
+    # and stages K and V by cp.async (LDGSTS)
+    sass = sass_counts(build.library_path("flash_attention"),
+                       "flash_attention_bf16_kernel", ("HMMA", "LDGSTS"))
+    print(f"  SASS of flash_attention_bf16_kernel (dh 32, 64, 128): {sass}")
+    if not (sass["HMMA"] and sass["LDGSTS"]):
+        raise AssertionError("the bf16 flash kernel has no HMMA or LDGSTS")
     card = smi("name,power.limit")
     print(card)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -741,6 +826,27 @@ def main():
             l2_err = max(l2_err, err)
             print(f"  ({n},{k},{d}) {str(dtype)[6:]}: near-ties {ties}, "
                   f"max |Δd²| {err:.3g}")
+    # the layouts draw from a generator of their own, so that the main
+    # paths' data stay those of earlier runs
+    lgen = torch.Generator(device=dev).manual_seed(1)
+    for name, (k, live) in DEAD_TILE_LAYOUTS.items():
+        valid = live(torch.arange(k, device=dev))
+        for n, d in LAYOUT_SHAPES:
+            for dtype in (torch.float32, torch.bfloat16):
+                x = torch.randn((n, d), generator=lgen, device=dev).to(dtype)
+                c = torch.randn((k, d), generator=lgen, device=dev).to(dtype)
+                got = da.distance_argmin_l2(x, c, valid)
+                if bool(valid.any()):
+                    _, err = l2_agreement(x, c, valid, got,
+                                          ref.distance_argmin_l2_ref(x, c,
+                                                                     valid))
+                    l2_err = max(l2_err, err)
+                elif bool(got[0].any()) or not bool(
+                        (got[1] == torch.finfo(torch.float32).max).all()):
+                    raise AssertionError(f"{name}: no valid center, yet not "
+                                         "label 0 and float32 max")
+        print(f"  layout '{name}' (k={k}, {int(valid.sum())} valid) at "
+              f"{LAYOUT_SHAPES}, float32 and bfloat16: within tolerance")
     data = sift_like(gen, n=N_FIT + N_FRESH, k=K_TRUE)
     x_fit, x_new = data.x[:N_FIT], data.x[N_FIT:]
     c = x_fit[torch.randperm(N_FIT, generator=gen, device=dev)[:1024]]
@@ -767,6 +873,15 @@ def main():
               "centers: labels and d² equal the L2 kernel's, two calls "
               "equal, counts exact, sums equal their order rebuilt in "
               "float32 and within bound")
+    for name, (k, live) in DEAD_TILE_LAYOUTS.items():
+        valid = live(torch.arange(k, device=dev))
+        for n, d in LAYOUT_SHAPES:
+            x = torch.randn((n, d), generator=lgen, device=dev)
+            c = torch.randn((k, d), generator=lgen, device=dev)
+            acc_err = max(acc_err, acc_check(x, c, valid,
+                                             f"'{name}' ({n},{k},{d})"))
+    print(f"  the dead-tile layouts at {LAYOUT_SHAPES}, float32: the same "
+          "checks hold")
     print(f"  sums' largest deviation from float64: {acc_err:.3g}")
 
     phase("3 MinHash kernel vs plain (bit-exact)")
@@ -907,6 +1022,10 @@ def run_paths(rt, dev, gen, card, int_rate, popc_rate, data, x_fit, x_new,
     l2_ms = cuda_ms(lambda: da.distance_argmin_l2(x_fit, cen, cv), 20)
     l2_plain_ms = cuda_ms(lambda: ref.distance_argmin_l2_ref(x_fit, cen, cv), 5)
     l2_lib_ms = cuda_ms(lambda: x_fit @ cen.T, 20)
+    live = cen[cv].contiguous()
+    l2_live_ms = cuda_ms(lambda: x_fit @ live.T, 20)
+    every = torch.ones_like(cv)
+    l2_all_ms = cuda_ms(lambda: da.distance_argmin_l2(x_fit, cen, every), 10)
     kv = int(cv.sum())
     l2_flops = 2.0 * N_FIT * kv * D
     l2_bytes = 4.0 * (N_FIT * D + cen.numel() + 2 * cen.shape[0] + 2 * N_FIT)
@@ -915,7 +1034,10 @@ def run_paths(rt, dev, gen, card, int_rate, popc_rate, data, x_fit, x_new,
         else "bytes"
     print(f"  L2 at ({N_FIT},{cen.shape[0]},{D}), {kv} valid: kernel "
           f"{l2_ms:.3f} ms, plain {l2_plain_ms:.3f} ms, x @ c.T "
-          f"{l2_lib_ms:.3f} ms, bound {l2_bound:.3f} ms ({l2_by})")
+          f"{l2_lib_ms:.3f} ms (all {cen.shape[0]} centers), x @ c[cv].T "
+          f"{l2_live_ms:.3f} ms ({kv} live), bound {l2_bound:.3f} ms "
+          f"({l2_by}); every center valid: kernel {l2_all_ms:.3f} ms")
+    del live, every
 
     phase("4b sharded dense path: fit(mesh=) + make_predict_sharded, g=1 NCCL")
     dense_sh_launch, dense_sh_s = sharded_check(

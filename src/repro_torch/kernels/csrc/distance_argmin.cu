@@ -9,18 +9,38 @@
 //
 // Bound on this card: O(n k d) float32 FMAs against O((n + k) d) bytes, so
 // at the main path's shapes (1M x 1024 x 128) it is bound by operations
-// (67 TFLOP/s float32 outside the tensor cores), not by memory.
+// (67 TFLOP/s float32 outside the tensor cores), not by memory; the work
+// the data needs is 2 n k* d, k* the valid centers.
 //
 // Design. The TPU kernel carries a running (min, argmin) in scratch
 // across a sequential grid axis over center tiles; CUDA blocks cannot
-// carry state from one to the next, so each block owns BN rows and loops
-// over ALL centers itself. Row and center tiles are staged in shared
-// memory BD dims at a time; each of the 256 threads accumulates a 4 x 4
-// register tile of dot products in float32 FMA (no TF32, no tensor cores
-// yet) and keeps, per row, a running (d2, index) best. The 16 threads
-// that share a row then reduce their bests through warp shuffles, comparing
-// (d2, index) lexicographically: the lowest index wins ties whatever the
-// order of the candidates. ||x||^2 is computed here; ||c||^2 comes from the
+// carry state from one to the next, so each block of 128 threads owns
+// BN = 128 rows and loops over the center tiles itself, keeping per row a
+// running (d2, index) best. What it does about the bound:
+// - Dead tiles are skipped. When the block starts it sets one bit per
+//   tile of BK = 64 centers that holds a valid center (a ballot over the
+//   validity flags: mark_live), and walks the set bits only (next_live).
+//   A fitted model's live centers sit at the front of k_max
+//   (centroid_centers fills groups 0..k*-1), so most tiles are dead. A
+//   dead tile's exact candidate is (FLT_MAX, its first index): every
+//   center in it would give FLT_MAX and the lowest index wins. That
+//   candidate is folded in instead of the tile's loads and FMAs, so the
+//   work follows k*, not k.
+// - Rows are resident. For d <= 256 the block's rows are read from device
+//   memory once, into shared memory, chunk by chunk with the first live
+//   tile, and stay there across every center tile; ||x||^2 is computed
+//   from them. Center tiles stream through a cp.async double buffer, BD
+//   dims at a time: chunk s + 1 is in flight while chunk s computes.
+//   Larger d stages rows and centers BD dims at a time, double-buffered
+//   the same way (the RES template parameter).
+// - Each thread keeps an 8 x 8 register tile (rows ty + 16i, centers
+//   tx + 8j) and reads it from shared memory as float4s over 4 dims: four
+//   consecutive rows and eight consecutive centers a warp, in distinct
+//   banks. Products are float32 FMA on the CUDA cores (TF32 would break
+//   the tolerance), each (row, center) dot accumulated in d order.
+// The 8 threads that share a row then reduce their bests through warp
+// shuffles, comparing (d2, index) lexicographically: the lowest index
+// wins ties whatever the order of the candidates. ||c||^2 comes from the
 // caller, as the reference computes it outside its kernel.
 //
 // The accumulating variant replaces _l2_acc_kernel (distance_argmin_l2
@@ -28,64 +48,175 @@
 // same labels and d2, plus per-cluster float32 sums one-hot(labels)^T @ x
 // (k, d) and counts (k,) in the same pass over x. Both kernels run the one
 // per-tile argmin below, l2_argmin_tile, so their labels and d2 are the
-// same bits (held on the card at every shape chip_smoke.py sweeps). The TPU kernel adds each tile into one (k, d)
-// accumulator carried across its sequential grid; here blocks run in no
-// order, and float atomics would make the sums change from call to call.
-// So a fixed grid of ACC_SLOTS blocks (a constant, fewer only when there
-// are fewer row tiles) walks the 64-row tiles in grid stride, and each
-// block adds its rows, in row order, into its own (k, d) slot: one thread
-// per column, read-modify-write with no other writer. A second kernel sums
-// the slots in slot order. The sums are therefore the same on every call.
-// The extra work is n*d adds and the slots' k*d*ACC_SLOTS floats, small
-// beside the n*k*d FMAs of the argmin.
+// same bits (held on the card at every shape chip_smoke.py sweeps). The
+// TPU kernel adds each tile into one (k, d) accumulator carried across its
+// sequential grid; here blocks run in no order, and float atomics would
+// make the sums change from call to call. So a fixed grid of ACC_SLOTS
+// blocks (a constant, fewer only when there are fewer row tiles) walks the
+// BN-row tiles in grid stride, and each block adds its rows, in row order,
+// into its own (k, d) slot: one thread per column, read-modify-write with
+// no other writer. A second kernel sums the slots in slot order. The sums
+// are therefore the same on every call. The extra work is n*d adds and the
+// slots' k*d*ACC_SLOTS floats, small beside the n*k*d FMAs of the argmin.
 #include <cfloat>
 #include <cmath>
 #include <climits>
+#include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int BN = 64;                  // rows per block
+constexpr int BN = 128;                 // rows per block
 constexpr int BK = 64;                  // centers per tile
-constexpr int BD = 32;                  // feature dims per staged chunk
-constexpr int TM = 4;                   // rows per thread
-constexpr int TN = 4;                   // centers per thread
-constexpr int THREADS = (BN / TM) * (BK / TN);  // 256
-constexpr int PAD = 4;                  // keeps float4 reads aligned, breaks store conflicts
+constexpr int BD = 64;                  // feature dims per staged chunk
+constexpr int TM = 8;                   // rows per thread: ty + 16 i
+constexpr int TN = 8;                   // centers per thread: tx + 8 j
+constexpr int LANES = 8;                // threads that share a row
+constexpr int THREADS = 128;
+constexpr int ROWL = THREADS / LANES;   // row lanes (16)
+constexpr int PAD = 4;                  // keeps rows 16-byte aligned
+constexpr int LC = BD + PAD;            // row length of a staged chunk
+constexpr int RES_MAX_D = 256;          // rows stay resident up to this d
+static_assert(BN == TM * ROWL && BK == TN * LANES, "tiling");
+
+// Shared memory of one block, in 4-byte words: the rows (resident: all of
+// d, padded to BD; else two buffers of one chunk), two buffers of one
+// center chunk, ||x||^2 of the rows, and one bit per center tile, set when
+// the tile holds a valid center.
+struct Layout {
+  int lx, xs, cs, xsq, live, words;
+};
+
+__host__ __device__ inline Layout layout(bool res, int d, int k) {
+  Layout L;
+  L.lx = res ? (d + BD - 1) / BD * BD + PAD : LC;
+  L.xs = 0;
+  L.cs = L.xs + (res ? BN * L.lx : 2 * BN * LC);
+  L.xsq = L.cs + 2 * BK * LC;
+  L.live = L.xsq + BN;
+  L.words = L.live + ((k + BK - 1) / BK + 31) / 32;
+  return L;
+}
 
 __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
   return v < bv || (v == bv && i < bi);
 }
 
-// The argmin of the BN rows from row0: writes labels[row], d2_out[row]
-// and, when tile_labels is not null, the tile's labels to that shared
-// array. Called by every thread of a block.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int src_bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int src_bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [0, nr) x columns [c0, c0 + nc) of the row-major matrix src (row
+// stride d, `avail` rows) into dst[r * ld + c - c0], zeros past `avail`
+// and past d, asynchronously. vec: 16 bytes a copy (d % 4 == 0 and src
+// 16-byte aligned), else 4. Called by every thread.
+__device__ __forceinline__ void stage(float* dst, int ld, const float* src,
+                                      long long avail, int nr, int c0,
+                                      int nc, int d, bool vec) {
+  if (vec) {
+    const int per = nc / 4;
+    for (int i = threadIdx.x; i < nr * per; i += THREADS) {
+      const int r = i / per, c = c0 + (i % per) * 4;
+      const bool ok = r < avail && c < d;
+      cp_async16(dst + r * ld + c - c0, ok ? src + (long long)r * d + c : src,
+                 ok ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < nr * nc; i += THREADS) {
+      const int r = i / nc, c = c0 + i % nc;
+      const bool ok = r < avail && c < d;
+      cp_async4(dst + r * ld + c - c0, ok ? src + (long long)r * d + c : src,
+                ok ? 4 : 0);
+    }
+  }
+}
+
+// Sets the bit of every center tile that holds a valid center: a ballot
+// over 32 consecutive centers (one tile's half) a warp. Called by every
+// thread; ends with a barrier.
+__device__ __forceinline__ void mark_live(const int* __restrict__ valid,
+                                          int k, unsigned* live) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int words = ((k + BK - 1) / BK + 31) / 32;
+  for (int w = threadIdx.x; w < words; w += THREADS) live[w] = 0u;
+  __syncthreads();
+  for (long long c0 = (long long)warp * 32; c0 < k; c0 += THREADS) {
+    const long long cen = c0 + lane;
+    if (__ballot_sync(0xffffffffu, cen < k && valid[cen] != 0) && lane == 0) {
+      const int t = (int)(c0 / BK);
+      atomicOr(live + t / 32, 1u << (t % 32));
+    }
+  }
+  __syncthreads();
+}
+
+// The first center tile at or after `from` whose bit is set, or the tile
+// count when there is none. Every thread computes the same answer.
+__device__ __forceinline__ int next_live(const unsigned* live, int k,
+                                         int from) {
+  const int tiles = (k + BK - 1) / BK;
+  for (int w = from / 32; w * 32 < tiles; ++w) {
+    const unsigned bits =
+        live[w] & (w == from / 32 ? ~0u << (from % 32) : ~0u);
+    if (bits) return min(w * 32 + __ffs(bits) - 1, tiles);
+  }
+  return tiles;
+}
+
+// Folds in the exact candidate of a run of dead tiles starting at tile t:
+// (FLT_MAX, t * BK). The run's later tiles give (FLT_MAX, a higher index),
+// which can never win over it.
+__device__ __forceinline__ void fold_dead(float (&best)[TM],
+                                          int (&best_i)[TM], int t) {
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+    if (better(FLT_MAX, t * BK, best[i], best_i[i])) {
+      best[i] = FLT_MAX;
+      best_i[i] = t * BK;
+    }
+}
+
+// The argmin of the BN rows from row0 over all k centers: writes
+// labels[row], d2_out[row] and, when tile_labels is not null, the rows'
+// labels to that shared array. sm is the block's dynamic shared memory
+// (layout(RES, d)). Called by every thread of a block.
+template <bool RES>
 __device__ __forceinline__ void l2_argmin_tile(
-    const float* __restrict__ x, const float* __restrict__ c,
+    float* sm, const float* __restrict__ x, const float* __restrict__ c,
     const float* __restrict__ csq, const int* __restrict__ valid, int n,
     int k, int d, long long row0, int* __restrict__ labels,
-    float* __restrict__ d2_out, int* tile_labels) {
-  __shared__ __align__(16) float xs[BD][BN + PAD];
-  __shared__ __align__(16) float cs[BD][BK + PAD];
-  __shared__ float xsq_s[BN];
-
+    float* __restrict__ d2_out, int* tile_labels, bool vec) {
+  const Layout L = layout(RES, d, k);
+  float* xs = sm + L.xs;
+  float* cs = sm + L.cs;
+  float* xsq_s = sm + L.xsq;
+  unsigned* live = reinterpret_cast<unsigned*>(sm + L.live);
   const int tid = threadIdx.x;
-  const int tx = tid % (BK / TN);       // center lane: centers tx*TN ..
-  const int ty = tid / (BK / TN);       // row lane: rows ty*TM ..
-  __syncthreads();  // a previous tile of this block is done with xsq_s
-
-  // ||x||^2 of the block's rows: one warp per row, lanes stride over d
+  const int tx = tid % LANES;           // centers tx + 8 j
+  const int ty = tid / LANES;           // rows ty + 16 i
   const int warp = tid / 32, lane = tid % 32;
-  for (int r = warp; r < BN; r += THREADS / 32) {
-    const long long row = row0 + r;
-    float s = 0.f;
-    if (row < n) {
-      const float* xr = x + row * d;
-      for (int j = lane; j < d; j += 32) s = fmaf(xr[j], xr[j], s);
-    }
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    if (lane == 0) xsq_s[r] = s;
-  }
+  const int chunks = (d + BD - 1) / BD;
+  const int tiles = (k + BK - 1) / BK;
+  const float* xb = x + row0 * d;
+  __syncthreads();  // a previous call of this block is done with sm
 
   float best[TM];
   int best_i[TM];
@@ -94,67 +225,125 @@ __device__ __forceinline__ void l2_argmin_tile(
     best[i] = INFINITY;
     best_i[i] = INT_MAX;
   }
+  // ||x||^2 of the block's rows: one warp per row, lanes stride over d
+  const auto row_norms = [&](const float* src, long long rs) {
+    for (int r = warp; r < BN; r += THREADS / 32) {
+      float s = 0.f;
+      if (row0 + r < n) {
+        const float* xr = src + r * rs;
+        for (int j = lane; j < d; j += 32) s = fmaf(xr[j], xr[j], s);
+      }
+      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      if (lane == 0) xsq_s[r] = s;
+    }
+  };
+  // the loads of stage (tile t, chunk ch) into buffer b; resident rows
+  // come chunk by chunk with the first live tile's stages, so its first
+  // chunk computes while the rest of the rows arrive
+  mark_live(valid, k, live);
+  const int first = next_live(live, k, 0);
+  const auto issue = [&](int t, int ch, int b) {
+    stage(cs + b * BK * LC, LC, c + (long long)t * BK * d,
+          (long long)k - (long long)t * BK, BK, ch * BD, BD, d, vec);
+    if (!RES)
+      stage(xs + b * BN * LC, LC, xb, (long long)n - row0, BN, ch * BD, BD, d,
+            vec);
+    else if (t == first)
+      stage(xs + ch * BD, L.lx, xb, (long long)n - row0, BN, ch * BD, BD, d,
+            vec);
+  };
 
-  for (int k0 = 0; k0 < k; k0 += BK) {
+  int t = first;
+  if (t > 0) fold_dead(best, best_i, 0);
+  if (!RES) row_norms(xb, d);
+  if (t < tiles) {
+    issue(t, 0, 0);
+    cp_async_commit();
     float acc[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-    for (int d0 = 0; d0 < d; d0 += BD) {
-      __syncthreads();  // the previous chunk is consumed (and xsq_s written)
-      for (int e = tid; e < BN * BD; e += THREADS) {
-        const int r = e / BD, j = e % BD;
-        const long long row = row0 + r;
-        const int col = d0 + j;
-        xs[j][r] = (row < n && col < d) ? x[row * d + col] : 0.f;
+    for (int ch = 0, st = 0;; ++st) {
+      int nt = t, nch = ch + 1;
+      if (nch == chunks) {
+        nch = 0;
+        nt = next_live(live, k, t + 1);
+        if (nt > t + 1) fold_dead(best, best_i, t + 1);
       }
-      for (int e = tid; e < BK * BD; e += THREADS) {
-        const int r = e / BD, j = e % BD;
-        const int cen = k0 + r, col = d0 + j;
-        cs[j][r] = (cen < k && col < d) ? c[(long long)cen * d + col] : 0.f;
+      const bool more = nt < tiles;
+      if (more) {
+        issue(nt, nch, (st + 1) & 1);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
       }
-      __syncthreads();
-#pragma unroll 8
-      for (int j = 0; j < BD; ++j) {
-        const float4 a = *reinterpret_cast<const float4*>(&xs[j][ty * TM]);
-        const float4 b = *reinterpret_cast<const float4*>(&cs[j][tx * TN]);
-        const float av[TM] = {a.x, a.y, a.z, a.w};
-        const float bv[TN] = {b.x, b.y, b.z, b.w};
+      __syncthreads();  // stage st (and every earlier one) is in place
+      if (RES && t == first && ch == chunks - 1) {
+        row_norms(xs, L.lx);  // every chunk of the rows has arrived
+        __syncthreads();
+      }
+      if (ch == 0) {
 #pragma unroll
         for (int i = 0; i < TM; ++i)
 #pragma unroll
-          for (int jj = 0; jj < TN; ++jj)
-            acc[i][jj] = fmaf(av[i], bv[jj], acc[i][jj]);
+          for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
       }
-    }
-
+      const float* xa = RES ? xs + ch * BD : xs + (st & 1) * BN * LC;
+      const int lda = RES ? L.lx : LC;
+      const float* ca = cs + (st & 1) * BK * LC;
+      // unrolled twice: fully unrolled, the loop's code is eight times the
+      // size and no faster on the card (tools/kernel_variants.py)
+#pragma unroll 2
+      for (int dd = 0; dd < BD; dd += 4) {
+        float4 bv[TN];
 #pragma unroll
-    for (int jj = 0; jj < TN; ++jj) {
-      const int cen = k0 + tx * TN + jj;
-      if (cen < k) {
-        const float cq = csq[cen];
-        const bool ok = valid[cen] != 0;
+        for (int j = 0; j < TN; ++j)
+          bv[j] = *reinterpret_cast<const float4*>(ca + (tx + LANES * j) * LC +
+                                                   dd);
 #pragma unroll
         for (int i = 0; i < TM; ++i) {
-          const float v = ok ? xsq_s[ty * TM + i] - 2.f * acc[i][jj] + cq
-                             : FLT_MAX;
-          if (better(v, cen, best[i], best_i[i])) {
-            best[i] = v;
-            best_i[i] = cen;
+          const float4 a = *reinterpret_cast<const float4*>(
+              xa + (ty + ROWL * i) * lda + dd);
+#pragma unroll
+          for (int j = 0; j < TN; ++j) {
+            acc[i][j] = fmaf(a.x, bv[j].x, acc[i][j]);
+            acc[i][j] = fmaf(a.y, bv[j].y, acc[i][j]);
+            acc[i][j] = fmaf(a.z, bv[j].z, acc[i][j]);
+            acc[i][j] = fmaf(a.w, bv[j].w, acc[i][j]);
           }
         }
       }
+      if (ch == chunks - 1) {
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          const int cen = t * BK + tx + LANES * j;
+          if (cen < k) {
+            const float cq = csq[cen];
+            const bool ok = valid[cen] != 0;
+#pragma unroll
+            for (int i = 0; i < TM; ++i) {
+              const float v =
+                  ok ? xsq_s[ty + ROWL * i] - 2.f * acc[i][j] + cq
+                     : FLT_MAX;
+              if (better(v, cen, best[i], best_i[i])) {
+                best[i] = v;
+                best_i[i] = cen;
+              }
+            }
+          }
+        }
+      }
+      __syncthreads();  // every thread is done with buffer st & 1
+      if (!more) break;
+      t = nt;
+      ch = nch;
     }
   }
 
-  // the 16 threads of a row are the 16 lanes of one half-warp
+  // the 8 threads of a row are 8 consecutive lanes of one warp
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     float v = best[i];
     int bi = best_i[i];
-    for (int o = (BK / TN) / 2; o > 0; o >>= 1) {
+    for (int o = LANES / 2; o > 0; o >>= 1) {
       const float ov = __shfl_xor_sync(0xffffffffu, v, o);
       const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
       if (better(ov, oi, v, bi)) {
@@ -162,12 +351,13 @@ __device__ __forceinline__ void l2_argmin_tile(
         bi = oi;
       }
     }
-    const long long row = row0 + ty * TM + i;
+    const int r = ty + ROWL * i;
+    const long long row = row0 + r;
     if (tx == 0 && row < n) {
       labels[row] = bi;
       d2_out[row] = fmaxf(v, 0.f);
     }
-    if (tx == 0 && tile_labels != nullptr) tile_labels[ty * TM + i] = bi;
+    if (tx == 0 && tile_labels != nullptr) tile_labels[r] = bi;
   }
 }
 
@@ -175,34 +365,40 @@ __device__ __forceinline__ void l2_argmin_tile(
 // inlined: ptxas then allocates the tile as it does in l2_argmin_kernel,
 // where inlining it beside the accumulation made that kernel slower on the
 // card (PERF.md, section 6).
+template <bool RES>
 __device__ __noinline__ void l2_argmin_tile_call(
-    const float* __restrict__ x, const float* __restrict__ c,
+    float* sm, const float* __restrict__ x, const float* __restrict__ c,
     const float* __restrict__ csq, const int* __restrict__ valid, int n,
     int k, int d, long long row0, int* __restrict__ labels,
-    float* __restrict__ d2_out, int* tile_labels) {
-  l2_argmin_tile(x, c, csq, valid, n, k, d, row0, labels, d2_out,
-                 tile_labels);
+    float* __restrict__ d2_out, int* tile_labels, bool vec) {
+  l2_argmin_tile<RES>(sm, x, c, csq, valid, n, k, d, row0, labels, d2_out,
+                      tile_labels, vec);
 }
 
-__global__ void __launch_bounds__(THREADS)
+template <bool RES>
+__global__ void __launch_bounds__(THREADS, 2)
 l2_argmin_kernel(const float* __restrict__ x, const float* __restrict__ c,
                  const float* __restrict__ csq, const int* __restrict__ valid,
                  int n, int k, int d, int* __restrict__ labels,
-                 float* __restrict__ d2_out) {
-  l2_argmin_tile(x, c, csq, valid, n, k, d, (long long)blockIdx.x * BN,
-                 labels, d2_out, nullptr);
+                 float* __restrict__ d2_out, int vec) {
+  extern __shared__ __align__(16) float smem[];
+  l2_argmin_tile<RES>(smem, x, c, csq, valid, n, k, d,
+                      (long long)blockIdx.x * BN, labels, d2_out, nullptr,
+                      vec != 0);
 }
 
 // One block per slot: zero the slot, then for each of its row tiles (grid
 // stride) the tile's argmin, and the tile's rows added into the slot's
 // (k, d) sums and (k,) counts in row order.
-__global__ void __launch_bounds__(THREADS)
+template <bool RES>
+__global__ void __launch_bounds__(THREADS, 2)
 l2_argmin_acc_kernel(const float* __restrict__ x, const float* __restrict__ c,
                      const float* __restrict__ csq,
                      const int* __restrict__ valid, int n, int k, int d,
                      int* __restrict__ labels, float* __restrict__ d2_out,
                      float* __restrict__ slot_sums,
-                     float* __restrict__ slot_cnt) {
+                     float* __restrict__ slot_cnt, int vec) {
+  extern __shared__ __align__(16) float smem[];
   __shared__ int tile_lab[BN];
   const int tid = threadIdx.x;
   float* ps = slot_sums + (size_t)blockIdx.x * k * d;
@@ -213,8 +409,8 @@ l2_argmin_acc_kernel(const float* __restrict__ x, const float* __restrict__ c,
   for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
     const long long row0 = t * BN;
     // begins with a barrier: the zeroing and the last tile's adds are done
-    l2_argmin_tile_call(x, c, csq, valid, n, k, d, row0, labels, d2_out,
-                        tile_lab);
+    l2_argmin_tile_call<RES>(smem, x, c, csq, valid, n, k, d, row0, labels,
+                             d2_out, tile_lab, vec != 0);
     __syncthreads();  // tile_lab is complete
     const int rows = (int)min((long long)BN, (long long)n - row0);
     for (int col = tid; col < d; col += THREADS) {
@@ -237,21 +433,38 @@ __global__ void sum_slots_kernel(const float* __restrict__ part, int slots,
   out[e] = s;
 }
 
+// Resident rows up to RES_MAX_D; 16-byte copies when every row and center
+// starts 16-byte aligned. Sets the kernel's shared-memory limit; returns
+// its bytes through *bytes.
+template <typename Kernel>
+cudaError_t prepare(Kernel kern, bool res, int d, int k, size_t* bytes) {
+  *bytes = (size_t)layout(res, d, k).words * sizeof(float);
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)*bytes);
+}
+
+bool aligned(const float* x, const float* c, int d) {
+  return d % 4 == 0 && (uintptr_t)x % 16 == 0 && (uintptr_t)c % 16 == 0;
+}
 
 }  // namespace
 
 // x (n, d), c (k, d), csq (k,) float32; valid (k,) int32; all contiguous
 // on `device`. Writes labels (n,) int32 and d2 (n,) float32. Launches on
-// `stream` and returns cudaGetLastError().
+// `stream` and returns the first CUDA error, 0 on success.
 extern "C" int repro_l2_argmin_f32(const float* x, const float* c,
                                    const float* csq, const int* valid, int n,
                                    int k, int d, int* labels, float* d2,
                                    int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  const bool res = d <= RES_MAX_D;
+  const auto kern = res ? l2_argmin_kernel<true> : l2_argmin_kernel<false>;
+  size_t bytes;
+  if ((err = prepare(kern, res, d, k, &bytes)) != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)((n + BN - 1) / BN);
-  l2_argmin_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      x, c, csq, valid, n, k, d, labels, d2);
+  kern<<<blocks, THREADS, bytes, (cudaStream_t)stream>>>(
+      x, c, csq, valid, n, k, d, labels, d2, aligned(x, c, d) ? 1 : 0);
   return (int)cudaGetLastError();
 }
 
@@ -269,8 +482,14 @@ extern "C" int repro_l2_argmin_acc_f32(const float* x, const float* c,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
-  l2_argmin_acc_kernel<<<slots, THREADS, 0, st>>>(
-      x, c, csq, valid, n, k, d, labels, d2, slot_sums, slot_cnt);
+  const bool res = d <= RES_MAX_D;
+  const auto kern =
+      res ? l2_argmin_acc_kernel<true> : l2_argmin_acc_kernel<false>;
+  size_t bytes;
+  if ((err = prepare(kern, res, d, k, &bytes)) != cudaSuccess) return (int)err;
+  kern<<<slots, THREADS, bytes, st>>>(x, c, csq, valid, n, k, d, labels, d2,
+                                      slot_sums, slot_cnt,
+                                      aligned(x, c, d) ? 1 : 0);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const long long m = (long long)k * d;
   sum_slots_kernel<<<(unsigned)((m + 255) / 256), 256, 0, st>>>(

@@ -6,12 +6,18 @@ assignment (paper §3.3), O(n·d·k), run once in every fit and predict.
 
 Bound on this card: operations. At 1M × 1024 × 128 the work is 2.7·10¹¹
 float32 FMA-flops against 0.5 GB read, so the FP32 (non-tensor) rate, not
-memory, is the limit. Design (``csrc/distance_argmin.cu``): one block per
-64 rows loops over every center, in place of the TPU's sequential grid
-axis that carried the running min in scratch; 64 × 64 register-tiled FMA
-products from shared memory; ties resolved to the lowest center index by
-a lexicographic (d², index) reduction. The plain version is
-``ref.distance_argmin_l2_ref`` (and, row-blocked, ``core.assign.assign_l2``).
+memory, is the limit; with a fitted model's k* valid centers, the work the
+data needs is 2·n·k*·d. Design (``csrc/distance_argmin.cu``): one block of
+128 threads per 128 rows loops over the center tiles, in place of the
+TPU's sequential grid axis that carried the running min in scratch. A
+tile of 64 centers with none valid is skipped (its exact candidate,
+FLT_MAX at its first index, is folded in instead), so the work follows
+k*, not k_max. The block's rows are read once and stay in shared memory
+for d ≤ 256; center chunks stream through a ``cp.async`` double buffer;
+each thread keeps an 8 × 8 register tile of float32 FMA products. Ties go
+to the lowest center index by a lexicographic (d², index) reduction. The
+plain version is ``ref.distance_argmin_l2_ref`` (and, row-blocked,
+``core.assign.assign_l2``).
 
 ``distance_argmin_l2_accumulate`` replaces the same function with
 ``accumulate=True`` (the TPU kernel ``_l2_acc_kernel``), the assignment of
@@ -40,7 +46,7 @@ _ACC_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
 
 #: the accumulating kernel's grid: one (k, d) partial slot per block
 ACC_SLOTS = 256
-BN = 64   # rows per tile, as in the source
+BN = 128   # rows per tile, as in the source
 
 
 def _entry():

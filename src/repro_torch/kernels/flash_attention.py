@@ -17,11 +17,14 @@ bias added after the product, in the same tile routine.
 Bound on this card: the prefill's attention is bound by operations (8.6
 GFLOP causal against 12.6 MB at Qwen3-0.6B's S = 2,048), the decode
 step's by launch latency. Design (``csrc/flash_attention.cu``): one block
-per (64-query tile, query head, batch), 64-key tiles staged in shared
-memory as float32, float32 scores, running max, sum and accumulator,
-the loop ending at the causal frontier; ragged S and K masked in the
-kernel. The plain versions are ``ref.attention_ref`` and
-``ref.centroid_attention_ref``.
+per (64-query tile, query head, batch), the key loop ending at the causal
+frontier; ragged S and K masked in the kernel. Two routines, by element
+type (``ROUTINES``): bf16 q, k, v (the prefill) run on the tensor cores
+(``mma.sync`` for Q·Kᵀ and P·V, K and V tiles staged by ``cp.async``,
+double-buffered; P enters P·V as three bf16 parts so that it keeps
+float32 accuracy); float32 runs float32 FMA on the CUDA cores. The centroid
+kernel shares the float32 routine's tile code. The plain versions are
+``ref.attention_ref`` and ``ref.centroid_attention_ref``.
 """
 from __future__ import annotations
 
@@ -41,13 +44,22 @@ _CENTROID_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p,
                                                ctypes.c_float, ctypes.c_int,
                                                ctypes.c_void_p])
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the routine ``flash_attention`` launches for each element type
+ROUTINES = {torch.bfloat16: "bf16 tensor cores (mma.sync, cp.async)",
+            torch.float32: "float32 CUDA cores (FMA)"}
 MAX_DH = 128
 
 
+_entries: dict = {}
+
+
 def _entry(name: str, argtypes):
-    fn = getattr(build.load("flash_attention"), name)
-    fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    return fn
+    """The C entry ``name``, its argument types set once."""
+    if name not in _entries:
+        fn = getattr(build.load("flash_attention"), name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        _entries[name] = fn
+    return _entries[name]
 
 
 def _device_index(dev: torch.device) -> int:
@@ -90,7 +102,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """Launch the kernel: q (B, Hq, S, dh), k and v (B, Hkv, S, dh), float32
     or bfloat16 on one CUDA device, Hkv | Hq, dh ≤ 128. Returns (B, Hq, S,
-    dh) in q's dtype. Counts one launch in ``flash_attention.launches``."""
+    dh) in q's dtype. Counts one launch in ``flash_attention.launches``,
+    and one in ``flash_attention.by_routine`` under the routine it took
+    (``ROUTINES``: all bf16 inputs take the tensor cores, any float32 input
+    the float32 routine)."""
     (qc, kc, vc), dt = _prepare(q, (k, v), "flash_attention")
     B, Hq, S, dh = qc.shape
     if kc.shape[2] != S:
@@ -107,10 +122,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         _device_index(q.device), torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_attention")
     flash_attention.launches += 1
+    flash_attention.by_routine[ROUTINES[dt]] += 1
     return out.to(q.dtype)
 
 
 flash_attention.launches = 0
+flash_attention.by_routine = dict.fromkeys(ROUTINES.values(), 0)
 
 
 def flash_centroid_attention(q: torch.Tensor, centers: torch.Tensor,

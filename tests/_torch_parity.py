@@ -16,6 +16,26 @@ import torch
 import repro_torch as rt
 
 
+#: validity layouts of k centers that the L2 kernel's skipping of wholly
+#: dead 64-center tiles must keep: name -> (k, valid of arange(k))
+DEAD_TILE_LAYOUTS = {
+    "live prefix": (1024, lambda i: i < 158),
+    "leading dead tiles": (300, lambda i: i >= 150),
+    "dead tile between live ones": (200, lambda i: (i < 40) | (i >= 140)),
+    "all dead": (130, lambda i: np.zeros(i.shape, bool)),
+    "k not a multiple of the tile": (70, lambda i: i % 7 != 3),
+}
+
+
+def dead_tile_layout(name: str, n: int, d: int, seed: int = 0):
+    """(x (n, d), centers (k, d) float32, valid (k,) bool) of one layout."""
+    k, live = DEAD_TILE_LAYOUTS[name]
+    rng = np.random.default_rng([seed, n, d, k])
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    c = rng.standard_normal((k, d)).astype(np.float32)
+    return x, c, live(np.arange(k))
+
+
 @pytest.fixture
 def cuda_device():
     """The card, or a skip with the reason (decided here, at run time)."""

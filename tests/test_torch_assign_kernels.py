@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import assert_labels_match
+from _torch_parity import (DEAD_TILE_LAYOUTS, assert_labels_match,
+                           dead_tile_layout)
 from repro.core import assign as ja
 from repro.core import silk as js
 from repro.kernels import ref as jref
@@ -76,6 +77,32 @@ def test_l2_no_valid_center_gives_label0_and_f32max():
     np.testing.assert_array_equal(lab.numpy(), np.asarray(jl))
     np.testing.assert_array_equal(d2.numpy(), np.asarray(jd))
     assert float(d2[0]) == np.finfo(np.float32).max and int(lab.max()) == 0
+
+
+@pytest.mark.parametrize("layout", list(DEAD_TILE_LAYOUTS))
+def test_l2_plain_matches_reference_on_dead_tile_layouts(layout):
+    """The layouts the kernel's dead-tile skipping must keep (live centers
+    as a prefix, dead tiles first or between live ones, every center dead,
+    k not a multiple of the 64-center tile), at n not a multiple of the
+    kernel's 128 rows: the plain versions against ``repro``'s."""
+    x, c, valid = dead_tile_layout(layout, 300, 24)
+    jl, jd = jref.distance_argmin_l2_ref(jnp.asarray(x), jnp.asarray(c),
+                                         jnp.asarray(valid))
+    jl, jd = np.asarray(jl), np.asarray(jd)
+    tx, tc, tv = map(torch.from_numpy, (x, c, valid))
+    for lab, dist in (tref.distance_argmin_l2_ref(tx, tc, tv),
+                      tops.distance_argmin_l2(tx, tc, tv, block=64)):
+        if not valid.any():
+            # label 0 and float32 max everywhere, exactly
+            np.testing.assert_array_equal(lab.numpy(), jl)
+            np.testing.assert_array_equal(dist.numpy(), jd)
+            assert int(lab.max()) == 0
+            assert np.all(dist.numpy() == np.finfo(np.float32).max)
+            continue
+        assert_labels_match(x, c, valid, jl, lab.numpy(), layout)
+        assert valid[lab.numpy()].all()
+        scale = (x * x).sum(1) + (c[valid] ** 2).sum(1).max()
+        assert np.all(np.abs(dist.numpy() - jd) <= 1e-5 * scale)
 
 
 def _seeds(rng, C, k_max, n):

@@ -13,8 +13,9 @@ import pytest
 import torch
 
 import repro_torch as rt
-from _torch_parity import (InjectedBucketer, assert_labels_match,  # noqa: F401
-                           carrier, cuda_device, u32)
+from _torch_parity import (DEAD_TILE_LAYOUTS,  # noqa: F401
+                           InjectedBucketer, assert_labels_match, carrier,
+                           cuda_device, dead_tile_layout, u32)
 from repro_torch.kernels import distance_argmin as tda
 from repro_torch.kernels import distance_argmin_hamming as tdh
 from repro_torch.kernels import minhash_buckets as tmh
@@ -154,6 +155,37 @@ def test_l2_kernel_no_valid_center(cuda_device):
                                                        device=cuda_device))
     assert int(lab.abs().max()) == 0
     assert bool((d2 == torch.finfo(torch.float32).max).all())
+
+
+@pytest.mark.parametrize("layout", list(DEAD_TILE_LAYOUTS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d", [(300, 24), (1000, 128), (129, 300)])
+def test_l2_kernels_on_dead_tile_layouts(cuda_device, layout, dtype, n, d):
+    """Dead-tile skipping keeps the function: live centers as a prefix,
+    leading dead tiles, a wholly dead tile between live ones, every center
+    dead, k not a multiple of the tile; n not a multiple of the 128 rows a
+    block, rows resident (d <= 256, aligned or not) or chunked (d = 300).
+    Row 1 against the plain version; row 2's labels and d² equal row 1's
+    bit for bit."""
+    x, c, valid = dead_tile_layout(layout, n, d)
+    tx = torch.from_numpy(x).to(cuda_device, dtype)
+    tc = torch.from_numpy(c).to(cuda_device, dtype)
+    tv = torch.from_numpy(valid).to(cuda_device)
+    kl, kd = tda.distance_argmin_l2(tx, tc, tv)
+    pl, pd = tref.distance_argmin_l2_ref(tx, tc, tv)
+    if not valid.any():
+        assert int(kl.abs().max()) == 0
+        assert bool((kd == torch.finfo(torch.float32).max).all())
+    else:
+        xf, cf = tx.float().cpu().numpy(), tc.float().cpu().numpy()
+        assert_labels_match(xf, cf, valid, pl.cpu().numpy(), kl.cpu().numpy(),
+                            f"{layout} {n}x{d} {dtype}")
+        scale = (xf * xf).sum(1) + (cf[valid] ** 2).sum(1).max()
+        assert np.all(np.abs(kd.cpu().numpy() - pd.cpu().numpy())
+                      <= 1e-5 * scale)
+    labels, d2, _, cnt = tda.distance_argmin_l2_accumulate(tx, tc, tv)
+    assert torch.equal(labels, kl) and torch.equal(d2, kd)
+    assert float(cnt.sum()) == n
 
 
 def test_fit_on_card_matches_cpu_fit(cuda_device):
@@ -381,7 +413,7 @@ def test_sharded_fits_on_one_rank_nccl_equal_incore(cuda_device, tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# flash attention and centroid attention (kernels 7 and 6)
+# flash attention and centroid attention
 # ---------------------------------------------------------------------------
 
 # tolerances: float32 at 2e-4, the reference's own sweep (online against
@@ -417,6 +449,28 @@ def test_flash_attention_kernel_matches_plain(cuda_device, B, Hq, Hkv, S, dh,
     assert tfa.flash_attention.launches == before + 1
     assert got.dtype == dtype and got.shape == (B, Hq, S, dh)
     _fa_close(got, tref.attention_ref(q, k, v, causal=causal), dtype)
+
+
+@pytest.mark.parametrize("S", [1, 15, 65, 100])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bf16_at_the_prefill_layout(cuda_device, S, dh,
+                                                    causal):
+    """The tensor-core routine at the prefill's layout: Qwen3-0.6B's 16
+    query over 8 kv heads, (B, S, H, dh) bf16 seen transposed, ragged S
+    down to one row."""
+    from repro_torch.kernels import flash_attention as tfa
+    gen = torch.Generator(device=cuda_device).manual_seed(S + dh)
+    q = torch.randn((1, S, 16, dh), generator=gen, device=cuda_device)
+    k, v = (torch.randn((1, S, 8, dh), generator=gen, device=cuda_device)
+            for _ in range(2))
+    q, k, v = (t.bfloat16().transpose(1, 2) for t in (q, k, v))
+    route = tfa.ROUTINES[torch.bfloat16]
+    before = tfa.flash_attention.by_routine[route]
+    got = tfa.flash_attention(q, k, v, causal=causal)
+    assert tfa.flash_attention.by_routine[route] == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (1, 16, S, dh)
+    _fa_close(got, tref.attention_ref(q, k, v, causal=causal), torch.bfloat16)
 
 
 def test_flash_attention_kernel_takes_strided_views(cuda_device):
@@ -473,9 +527,9 @@ def test_centroid_kernel_takes_broadcast_centroids(cuda_device):
 
 
 def test_lm_paths_on_card_run_the_flash_kernels(cuda_device):
-    """A smoke LM on the card: the prefill runs kernel 7 once per layer
-    and equals the same forward on the CPU; clustered decode runs kernel 6
-    once per layer per step, and k* per head equals the CPU run's (the same
+    """A smoke LM on the card: the prefill runs the flash-attention kernel
+    once per layer and equals the same forward on the CPU; clustered decode
+    runs the centroid-attention kernel once per layer per step, and k* per head equals the CPU run's (the same
     draws: the fits' seeds are the generator's on each device, so both are
     handed one bucketer's arrays). float32 products stay full float32
     (``forward`` turns TF32 off)."""

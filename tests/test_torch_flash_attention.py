@@ -75,6 +75,74 @@ def test_flash_attention_plain_bf16_matches_pallas():
                                **BF16_TOL)
 
 
+def _split_p_attention(q, k, v, *, causal, parts):
+    """The bf16 kernel's arithmetic in plain torch: per 64-key tile, float32
+    scores of the bf16 inputs, the running max and sum, P = exp(s - m)
+    entering P·V as ``parts`` bf16 parts (bf16(P), then bf16 of what is
+    left), V in bf16, float32 sums into a fresh tile accumulator folded
+    in as acc·corr + tile; acc / max(l, 1e-30) rounded to bf16."""
+    B, Hq, S, dh = q.shape
+    rep = Hq // k.shape[1]
+    qf = q.float()
+    kf, vf = (t.repeat_interleave(rep, 1).float() for t in (k, v))
+    m = torch.full((B, Hq, S, 1), -1e30)
+    l = torch.zeros((B, Hq, S, 1))
+    acc = torch.zeros((B, Hq, S, dh))
+    rows = torch.arange(S)[:, None]
+    for k0 in range(0, S, 64):
+        keys = torch.arange(k0, min(k0 + 64, S))[None, :]
+        s = qf @ kf[:, :, k0:k0 + 64].transpose(-1, -2) * (1.0 / dh ** 0.5)
+        if causal:
+            s = torch.where(keys <= rows, s, -1e30)
+        mn = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp(m - mn)
+        p = torch.exp(s - mn)
+        l = l * corr + p.sum(-1, keepdim=True)
+        m = mn
+        o = torch.zeros_like(acc)
+        for _ in range(parts):
+            part = p.bfloat16().float()
+            o = o + part @ vf[:, :, k0:k0 + 64]
+            p = p - part
+        acc = acc * corr + o
+    return (acc / l.clamp_min(1e-30)).bfloat16()
+
+
+def _split_p_worst(q, k, v, causal, parts):
+    """Largest |split-P emulation − plain| over the bf16 tolerance's limit."""
+    want = tref.attention_ref(q, k, v, causal=causal).float().numpy()
+    got = _split_p_attention(q, k, v, causal=causal, parts=parts)
+    err = np.abs(got.float().numpy() - want)
+    return float(np.max(err / (BF16_TOL["atol"] + BF16_TOL["rtol"]
+                               * np.abs(want))))
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,dh", ATTN_SWEEP)
+@pytest.mark.parametrize("causal", [True, False])
+def test_split_p_product_holds_the_bf16_tolerance(B, Hq, Hkv, S, dh, causal):
+    """The tensor-core routine's P·V with P as three bf16 parts stays within
+    the unchanged bf16 tolerance of the plain version; P as one bf16 part
+    (2^-9 of each weight) falls outside it at every one of these shapes,
+    which is why the kernel splits P."""
+    rng = np.random.default_rng(S * dh + causal)
+    q, k, v = (torch.from_numpy(_normal(rng, (B, h, S, dh))).bfloat16()
+               for h in (Hq, Hkv, Hkv))
+    assert _split_p_worst(q, k, v, causal, parts=3) <= 1.0
+    assert _split_p_worst(q, k, v, causal, parts=1) > 1.0
+
+
+def test_two_part_p_misses_a_short_causal_row():
+    """Two bf16 parts (2^-18 of each weight) are not enough either: on
+    these inputs of the sweep's (2, 8, 2, 100, 64) shape a near-zero output
+    of a short causal row falls outside the tolerance, where three parts
+    hold it."""
+    rng = np.random.default_rng(9)
+    q, k, v = (torch.from_numpy(_normal(rng, (2, h, 100, 64))).bfloat16()
+               for h in (8, 2, 2))
+    assert _split_p_worst(q, k, v, True, parts=2) > 1.0
+    assert _split_p_worst(q, k, v, True, parts=3) <= 1.0
+
+
 @pytest.mark.parametrize("B,Hq,Hkv,S,K,dh", CENTROID_SWEEP)
 def test_centroid_attention_plain_matches_pallas_and_oracle(B, Hq, Hkv, S, K,
                                                             dh):

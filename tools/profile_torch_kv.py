@@ -15,10 +15,11 @@ handles). Then three runs:
 1. un-instrumented: ``clustered_decode``'s own synchronized stage clock
    (prefill, initial fits, decode steps, refresh) and its wall time;
 2. instrumented: each stage wrapped by a synchronized host clock, nested
-   stages inside their parents: the prefill's attention (kernel 7), the
-   fits, and per decode step ``stack_heads``, the clustered attention
-   (kernel 6 and its inputs' concatenation), the rest of the model step,
-   and each head's ``update`` split into ``route`` (the L2 kernel) and the
+   stages inside their parents: the prefill's attention (the
+   flash-attention kernel), the fits, and per decode step
+   ``stack_heads``, the clustered attention (the centroid-attention kernel
+   and its inputs' concatenation), the rest of the model step, and each
+   head's ``update`` split into ``route`` (the L2 kernel) and the
    EMA (``ema_update`` + ``update_centers``);
 3. under ``torch.profiler`` (card only), a few decode steps: the device's
    busy share of the wall time and the device time by kernel.
@@ -70,10 +71,10 @@ def timed_stages(dev):
         setattr(owner, name, timed)
         patched.append((owner, name, fn))
 
-    wrap(L, "cache_attention", "cache attention (prefill: kernel 7)")
+    wrap(L, "cache_attention", "cache attention (prefill: flash_attention)")
     wrap(kv.OnlineKVCluster, "_fit", "GEEK fits (start and refresh)")
     wrap(kv, "stack_heads", "stack_heads")
-    wrap(kv, "clustered_attention", "clustered attention (kernel 6)")
+    wrap(kv, "clustered_attention", "clustered attention (flash_centroid_attention)")
     wrap(kv.OnlineKVCluster, "update", "update (route + EMA + v_max)")
     wrap(kv.OnlineKVCluster, "route", "- route (predict: L2 kernel)")
     wrap(kv, "ema_update", "- ema_update")
