@@ -33,8 +33,12 @@ versions over the reference's sweeps (phase 10), and Qwen3-0.6B at full
 width (28 layers, d_model 1,024, bf16, weights drawn from a seed) through
 ``clustered_decode``, exact and clustered (phase 11): a 2,048-token
 prefill on the flash-attention kernel, 224 per-head GEEK fits, 64 decode
-steps on the centroid-attention kernel with routing and EMA updates, one
-refresh at step 32.
+steps, one refresh at step 32. The clustered step keeps each layer's kv
+heads as one stacked state, attends on the centroid-attention kernel's
+decode routine over it in place, routes every head's new key in one
+head-batched launch of the L2 kernel and updates all heads in one EMA; it
+is captured once as a CUDA graph and replayed (its kernels' launches are
+counted at every replay), and held to the same run with the step eager.
 
 All data is generated from a seed, not downloaded. It checks that each
 path launched its kernels, round-trips checkpoints, and reproduces the
@@ -143,6 +147,14 @@ KV_LOGIT_RTOL = 0.1
 KV_FAULTS = ("non-causal", "next kv head")
 # layers whose clustered attention is held to the error bound
 KV_BOUND_LAYERS = (0, 13, 27)
+# the clustered run replayed from a CUDA graph against the same run with the
+# step eager, relative perplexity: the same kernels on the same inputs
+KV_GRAPH_RTOL = 1e-4
+# decode steps of the profiled runs that measure the device's busy share
+KV_BUSY_STEPS = 16
+# the decode routine's sweep beside the main path's shape: (B, Hq, Hkv, K,
+# dh), as tests/test_torch_cuda.py's
+DECODE_SHAPES = [(1, 4, 4, 128, 128), (2, 8, 2, 33, 32), (1, 6, 2, 300, 16)]
 
 
 def phase(name):
@@ -351,6 +363,36 @@ def sass_counts(lib, function, opcodes):
 def reset_launches(*kernels):
     for k in kernels:
         k.launches = 0
+        for routine in getattr(k, "by_routine", {}):
+            k.by_routine[routine] = 0
+
+
+def busy_per_range(prof, span, skip=0):
+    """(device busy ms, device events, wall ms) per host range named
+    ``span`` in a ``torch.profiler`` trace, the first ``skip`` ranges left
+    out: the union of the device intervals (kernels, copies, fills) that
+    start inside a range, and the range's wall time under the profiler.
+    The range's own annotation on the device's timeline is not device
+    work."""
+    import bisect
+    events = prof.events()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.name == span and "CUDA" not in str(e.device_type))
+    spans = spans[skip:]
+    dev = sorted((e.time_range.start, e.time_range.end) for e in events
+                 if "CUDA" in str(e.device_type) and e.name != span)
+    starts = [k0 for k0, _ in dev]
+    busy, seen = 0.0, 0
+    for s0, s1 in spans:
+        reach = s0
+        for k0, k1 in dev[bisect.bisect_left(starts, s0):
+                          bisect.bisect_left(starts, s1)]:
+            busy += max(0.0, k1 - max(k0, reach))
+            reach = max(reach, k1)
+            seen += 1
+    n = max(len(spans), 1)
+    return (busy / n / 1e3, seen / n,
+            sum(s1 - s0 for s0, s1 in spans) / n / 1e3)
 
 
 def ham_exact(kernel_out, plain_out, what):
@@ -546,6 +588,149 @@ def flash_phase(dev, gen):
     ]
 
 
+def decode_kernels(dev, cfg, k_stars):
+    """Phase 11's kernels of the clustered step at the main path's shapes:
+    the head-batched L2 route (one layer's kv heads, one new key each,
+    against k_max centroids, the first ``len(k_stars)`` of them valid per
+    head, as the run's first layer fitted) and the decode routine of the
+    centroid attention (bf16 queries and fresh rows over the float32
+    state), each held to its plain version (the route also to one launch
+    per head, bit for bit), then timed beside the per-head launches / SDPA.
+    Returns their rows of the kernels line (launches filled in by the
+    caller)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import distance_argmin as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=dev).manual_seed(2)
+    H, hd, Hq = cfg.num_kv_heads, cfg.resolved_head_dim, cfg.num_heads
+    K = KV_KMAX
+    ks = torch.tensor(k_stars, device=dev)
+    valid = torch.arange(K, device=dev)[None, :] < ks[:, None]
+    x = torch.randn((H, 1, hd), generator=gen, device=dev)
+    c = torch.randn((H, K, hd), generator=gen, device=dev)
+    csq = torch.sum(c * c, dim=-1)
+    got = da.distance_argmin_l2_heads(x, c, csq, valid)
+    heads_err = 0.0
+    for h in range(H):
+        one = da.distance_argmin_l2(x[h], c[h], valid[h])
+        if not (torch.equal(got[0][h], one[0]) and
+                torch.equal(got[1][h], one[1])):
+            raise AssertionError(f"head-batched route differs from one "
+                                 f"launch on head {h}")
+        _, err = l2_agreement(x[h], c[h], valid[h], one,
+                              ref.distance_argmin_l2_ref(x[h], c[h],
+                                                         valid[h]))
+        heads_err = max(heads_err, err)
+    heads_ms = cuda_ms(lambda: da.distance_argmin_l2_heads(x, c, csq, valid),
+                       500)
+    per_head_ms = cuda_ms(lambda: [da.distance_argmin_l2(x[h], c[h], valid[h])
+                                   for h in range(H)], 100)
+    heads_dev = device_ms(lambda: da.distance_argmin_l2_heads(
+        x, c, csq, valid), 50, "l2_argmin")
+    per_head_dev = device_ms(lambda: [da.distance_argmin_l2(
+        x[h], c[h], valid[h]) for h in range(H)], 50, "l2_argmin")
+    heads_plain_ms = cuda_ms(lambda: ref.distance_argmin_l2_heads_ref(
+        x, c, csq, valid), 50)
+    heads_lib_ms = cuda_ms(lambda: torch.bmm(x, c.transpose(1, 2)), 500)
+    live = int(ks.sum())
+    # x, centers, ||c||^2 and validity read once, labels and d² written;
+    # 2·d flops per (row, valid center) at the float32 rate
+    heads_bound, heads_by = bound(
+        4.0 * (H * hd + H * K * hd + 2 * H * K + 2 * H),
+        [2.0 * live * hd / PEAK_F32_FLOPS])
+    print(f"  distance_argmin_l2_heads at ({H}, 1, {K}, {hd}), {live} valid "
+          f"centers: bit-identical to {H} launches, one a head; vs plain "
+          f"max |Δd²| {heads_err:.3g}; one launch {heads_ms:.4f} ms against "
+          f"{H} launches {per_head_ms:.4f} ms (device time alone "
+          f"{heads_dev:.4f} / {per_head_dev:.4f} ms), plain "
+          f"{heads_plain_ms:.4f} ms, torch.bmm {heads_lib_ms:.4f} ms, bound "
+          f"{heads_bound:.7f} ms ({heads_by})")
+
+    dec_err = 0.0
+    for B, hq, hkv, k, dh in DECODE_SHAPES + [(1, Hq, H, K, hd)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            for case in ("dead", "all dead", "no fresh row"):
+                cs, vs = (torch.randn((hkv, k, dh), generator=gen, device=dev)
+                          for _ in range(2))
+                mass = torch.randint(0, 4, (hkv, k), generator=gen,
+                                     device=dev).float()
+                ok = torch.rand((hkv, k), generator=gen, device=dev) < 0.8
+                if case == "all dead":
+                    ok[:] = False
+                qkv = torch.randn((B, 1, hq + 2 * hkv, dh), generator=gen,
+                                  device=dev).to(dtype)
+                q, ek, ev = (qkv[:, :, :hq], qkv[:, :, hq:hq + hkv],
+                             qkv[:, :, hq + hkv:])
+                ex = {} if case == "no fresh row" else {"extra_k": ek,
+                                                         "extra_v": ev}
+                dec_err = max(dec_err, fa_check(
+                    fa.flash_centroid_decode(q, cs, vs, mass, ok, **ex),
+                    ref.centroid_decode_ref(q, cs, vs, mass, ok, **ex),
+                    f"decode {(B, hq, hkv, k, dh)} {dtype} {case}"))
+    print(f"  flash_centroid_decode over {DECODE_SHAPES + [(1, Hq, H, K, hd)]}"
+          f" (B, Hq, Hkv, K, dh), float32 and bfloat16, some dead, all dead, "
+          f"no fresh row: within tolerance, max |Δ| {dec_err:.3g}")
+    # the main path's inputs: bf16 queries and fresh rows (strided views of
+    # one projection), the state in place, k* live rows per head
+    qkv = torch.randn((1, 1, Hq + 2 * H, hd), generator=gen,
+                      device=dev).to(torch.bfloat16)
+    q, ek, ev = qkv[:, :, :Hq], qkv[:, :, Hq:Hq + H], qkv[:, :, Hq + H:]
+    vc = torch.randn((H, K, hd), generator=gen, device=dev)
+    mass = torch.where(valid, torch.randint(1, 600, (H, K), generator=gen,
+                                            device=dev).float(), 0.0)
+    got = fa.flash_centroid_decode(q, c, vc, mass, valid, extra_k=ek,
+                                   extra_v=ev)
+    dec_err = max(dec_err, fa_check(got, ref.centroid_decode_ref(
+        q, c, vc, mass, valid, extra_k=ek, extra_v=ev), "decode, main path"))
+    dec_ms = cuda_ms(lambda: fa.flash_centroid_decode(
+        q, c, vc, mass, valid, extra_k=ek, extra_v=ev), 500)
+    dec_dev = device_ms(lambda: fa.flash_centroid_decode(
+        q, c, vc, mass, valid, extra_k=ek, extra_v=ev), 50,
+        "flash_centroid_decode")
+    dec_plain_ms = cuda_ms(lambda: ref.centroid_decode_ref(
+        q, c, vc, mass, valid, extra_k=ek, extra_v=ev), 100)
+    # SDPA on the same rows, appended and masked beforehand (a yardstick)
+    lm = torch.where(valid & (mass > 0), torch.log(mass.clamp(min=1e-9)),
+                     -1e30)
+    cc = torch.cat([c, ek[0, 0][:, None].float()], 1)[None]
+    vv = torch.cat([vc, ev[0, 0][:, None].float()], 1)[None]
+    mask = torch.cat([lm, torch.zeros((H, 1), device=dev)], 1)
+    mask = mask.repeat_interleave(Hq // H, 0)[None, :, None, :]
+    qf = q.transpose(1, 2).float()
+    dec_lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qf, cc, vv, attn_mask=mask, enable_gqa=True), 500)
+    sdpa_dev = device_ms(lambda: F.scaled_dot_product_attention(
+        qf, cc, vv, attn_mask=mask, enable_gqa=True), 50)
+    # the rows the data needs (live centroids and the fresh rows, keys and
+    # values), mass and validity of every row, queries read once, output
+    # written; 4·dh flops per (query head, row) at the float32 rate
+    rows_live = live + H
+    dec_bound, dec_by = bound(
+        2 * 4.0 * rows_live * hd + 5.0 * H * K + 2.0 * 2 * Hq * hd,
+        [4.0 * (Hq // H) * rows_live * hd / PEAK_F32_FLOPS])
+    print(f"  flash_centroid_decode at (1, {Hq}, {H}, {K} + 1, {hd}), bf16 "
+          f"queries, {live} live rows: kernel {dec_ms:.4f} ms (device time "
+          f"alone {dec_dev:.4f} ms), plain {dec_plain_ms:.4f} ms, SDPA with "
+          f"a float mask {dec_lib_ms:.4f} ms (device {sdpa_dev:.4f} ms), bound "
+          f"{dec_bound:.7f} ms ({dec_by})")
+    return [
+        {"name": "distance_argmin_l2_heads", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/distance_argmin.cu",
+         "replaces": "src/repro/kernels/distance_argmin.py:188",
+         "launches": None, "max_abs_err": heads_err, "ms": heads_ms,
+         "plain_ms": heads_plain_ms, "bound_ms": heads_bound,
+         "bound_by": heads_by, "library_ms": heads_lib_ms},
+        {"name": "flash_centroid_decode", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:173",
+         "launches": None, "max_abs_err": dec_err, "ms": dec_ms,
+         "plain_ms": dec_plain_ms, "bound_ms": dec_bound,
+         "bound_by": dec_by, "library_ms": dec_lib_ms},
+    ]
+
+
 def plain_prefill_override(cfg, dtype=torch.float32, fault=None):
     """An attention override computing the reference's cache branch
     (``layers.cache_attention_ref``: the plain softmax over the whole
@@ -575,15 +760,21 @@ def kv_path(rt, dev, gen, all_kernels):
     """Phase 11: Qwen3-0.6B at full width through ``clustered_decode``,
     exact and clustered, with every launch count reset just before each
     run and read just after; the prefill's logits against the plain
-    attention; the error bound at one decode step of a few layers.
-    Returns the clustered run's launches by kernel name."""
+    attention; the clustered run replayed from its CUDA graph against the
+    same run eager; the device's busy share of the decode steps; the
+    clustered step's kernels (``decode_kernels``); the error bound at one
+    decode step of a few layers through the per-head API. Returns the
+    launches of the phase-10 kernels (the prefill's, and the per-head
+    path's tiles routine) and the rows of the step's kernels."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     from repro_torch.models import layers as L
     from repro_torch.models import model as M
     from repro_torch.models import transformer as T
     from repro_torch.serve import kv_cluster as kv
-    kernels = all_kernels + (fa.flash_attention, fa.flash_centroid_attention)
+    from repro_torch.kernels import distance_argmin as da
+    kernels = all_kernels + (fa.flash_attention, fa.flash_centroid_attention,
+                             da.distance_argmin_l2_heads)
     cfg = rt.get_arch(KV_ARCH)
     phase(f"11 KV-cache serving path: {cfg.name} ({cfg.num_layers} layers, "
           f"d_model {cfg.d_model}), prompt {KV_PROMPT}, {KV_DECODE} decoded")
@@ -648,36 +839,60 @@ def kv_path(rt, dev, gen, all_kernels):
           f"({cfg.num_layers} calls); device busy {dev_all / wall_ms:.1%} "
           "of the wall")
 
-    runs, launches = {}, {}
-    for mode in ("exact", "clustered"):
-        reset_launches(*kernels)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        out = kv.clustered_decode(params, cfg, tokens, KV_PROMPT, mode=mode,
-                                  gcfg=kv.default_kv_config(KV_KMAX),
-                                  ema=KV_EMA, refresh_every=KV_REFRESH,
-                                  device=dev)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches[mode] = {k.__name__: k.launches for k in kernels}
-        runs[mode] = out
-        sec = out["seconds"]
-        steps = np.array(sec["steps"])
-        print(f"  {mode}: {wall:.2f} s; prefill {sec['prefill']:.4f} s, "
-              f"fits {sec['fits']:.3f} s, decode step mean "
-              f"{steps.mean() * 1e3:.2f} ms (median "
-              f"{np.median(steps) * 1e3:.2f}, max {steps.max() * 1e3:.2f}), "
-              f"refresh {sec['refresh']:.3f} s; ppl {out['ppl']:.4f}; peak "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        if mode == "clustered":
-            print(f"    mean k* {out['mean_k_star']:.2f} (min "
-                  f"{min(out['k_stars'])}, max {max(out['k_stars'])}), "
-                  f"compression {out['compression']:.2f}, refreshes "
-                  f"{out['refreshes']}")
-        print(f"    launches {launches[mode]}")
+    # the decode routine's host calls: a replayed step does not call it
+    decode_calls = [0]
+    real_decode = kv.kops.flash_centroid_decode
+
+    def counted_decode(*args, **kwargs):
+        decode_calls[0] += 1
+        return real_decode(*args, **kwargs)
+
+    route = fa.CENTROID_ROUTINES["decode"]
+    runs, launches, routines, calls = {}, {}, {}, {}
+    kv.kops.flash_centroid_decode = counted_decode
+    try:
+        for run in ("exact", "clustered", "clustered, eager"):
+            mode = run.split(",")[0]
+            reset_launches(*kernels)
+            decode_calls[0] = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = kv.clustered_decode(params, cfg, tokens, KV_PROMPT,
+                                      mode=mode,
+                                      gcfg=kv.default_kv_config(KV_KMAX),
+                                      ema=KV_EMA, refresh_every=KV_REFRESH,
+                                      device=dev,
+                                      cuda_graph=run != "clustered, eager")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches[run] = {k.__name__: k.launches for k in kernels}
+            routines[run] = dict(fa.flash_centroid_attention.by_routine)
+            calls[run] = decode_calls[0]
+            runs[run] = out
+            sec = out["seconds"]
+            steps = np.array(sec["steps"])
+            print(f"  {run}: {wall:.2f} s; prefill {sec['prefill']:.4f} s, "
+                  f"fits {sec['fits']:.3f} s, decode step mean "
+                  f"{steps.mean() * 1e3:.3f} ms (median "
+                  f"{np.median(steps) * 1e3:.3f}, first "
+                  f"{steps[0] * 1e3:.2f}, max {steps.max() * 1e3:.2f}), "
+                  f"refresh {sec['refresh']:.3f} s; ppl {out['ppl']:.6f}; "
+                  f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            if mode == "clustered":
+                print(f"    mean k* {out['mean_k_star']:.2f} (min "
+                      f"{min(out['k_stars'])}, max {max(out['k_stars'])}), "
+                      f"compression {out['compression']:.2f}, refreshes "
+                      f"{out['refreshes']}, overflow "
+                      f"{max(out['overflows'])}; decode-routine wrapper "
+                      f"called {calls[run]} times on the host")
+            print(f"    launches {launches[run]}")
+    finally:
+        kv.kops.flash_centroid_decode = real_decode
     heads = cfg.num_layers * cfg.num_kv_heads
+    per_run = cfg.num_layers * KV_DECODE
     exact, clus = runs["exact"], runs["clustered"]
+    eager = runs["clustered, eager"]
     lx, lc = launches["exact"], launches["clustered"]
     if not (math.isfinite(exact["ppl"]) and math.isfinite(clus["ppl"])):
         raise AssertionError("non-finite perplexity")
@@ -689,12 +904,62 @@ def kv_path(rt, dev, gen, all_kernels):
             lc["flash_attention"] != cfg.num_layers:
         raise AssertionError("flash_attention did not launch once a layer per "
                              "prefill")
-    if lc["flash_centroid_attention"] != cfg.num_layers * KV_DECODE or \
+    # one centroid attention a layer a step, on the decode routine, graph
+    # replays counted; one head-batched route a layer a step
+    if lc["flash_centroid_attention"] != per_run or \
+            routines["clustered"][route] != per_run or \
             lx["flash_centroid_attention"] != 0:
         raise AssertionError("flash_centroid_attention did not launch once a "
                              "layer per step")
+    if lc["distance_argmin_l2_heads"] != per_run or \
+            launches["clustered, eager"]["distance_argmin_l2_heads"] != per_run:
+        raise AssertionError("the head-batched route did not launch once a "
+                             "layer per step")
     if lc["distance_argmin_l2"] <= 0 or lc["minhash_segments"] <= 0:
         raise AssertionError("the fits did not run the L2 and MinHash kernels")
+    # replayed, not eager: the wrapper ran at the first step and the capture
+    if calls["clustered"] != 2 * cfg.num_layers or \
+            calls["clustered, eager"] != per_run:
+        raise AssertionError(f"the clustered step was not replayed from its "
+                             f"graph: {calls}")
+    graph_rel = abs(clus["ppl"] - eager["ppl"]) / eager["ppl"]
+    if clus["k_stars"] != eager["k_stars"] or not graph_rel <= KV_GRAPH_RTOL:
+        raise AssertionError(f"graph replay differs from the eager step: ppl "
+                             f"{clus['ppl']} vs {eager['ppl']}")
+    sx, sc, se = (np.array(r["seconds"]["steps"]) * 1e3
+                  for r in (exact, clus, eager))
+    print(f"  decode step, ms (mean / median): clustered, graph "
+          f"{sc.mean():.3f} / {np.median(sc):.3f}; exact {sx.mean():.3f} / "
+          f"{np.median(sx):.3f}; clustered, eager {se.mean():.3f} / "
+          f"{np.median(se):.3f}. Clustered / exact: {sc.mean() / sx.mean():.3f}"
+          f" ({'below' if sc.mean() < sx.mean() else 'NOT below'} the exact "
+          f"step). Graph vs eager: ppl relative {graph_rel:.3g} (tolerance "
+          f"{KV_GRAPH_RTOL}), k* equal")
+
+    # the device's busy share of the decode steps: the device time of a
+    # step's kernels, from profiled runs of KV_BUSY_STEPS steps (no refresh,
+    # the first step, which captures, left out), over the mean step of the
+    # runs above (steps 2-64); tracing slows the steps themselves, so the
+    # share under the profiler is printed beside it
+    from torch.profiler import ProfilerActivity, profile
+    for mode, steps in (("clustered", sc), ("exact", sx)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            kv.clustered_decode(params, cfg,
+                                tokens[:, :KV_PROMPT + KV_BUSY_STEPS],
+                                KV_PROMPT, mode=mode,
+                                gcfg=kv.default_kv_config(KV_KMAX),
+                                ema=KV_EMA, refresh_every=KV_REFRESH,
+                                device=dev)
+        busy, events, traced = busy_per_range(prof, kv.STEP_SPAN, skip=1)
+        print(f"  {mode} decode step, device: {busy:.3f} ms of kernels and "
+              f"copies, {events:.0f} device events (torch.profiler, steps "
+              f"2-{KV_BUSY_STEPS}); busy share {busy / steps[1:].mean():.1%}"
+              f" of the untraced mean step {steps[1:].mean():.3f} ms "
+              f"({busy / traced:.1%} of the traced step, {traced:.3f} ms)")
+    rows = decode_kernels(dev, cfg, clus["k_stars"][:cfg.num_kv_heads])
+    rows[0]["launches"] = lc["distance_argmin_l2_heads"]
+    rows[1]["launches"] = routines["clustered"][route]
 
     # the first decode step of a few layers: each kv head fitted on its
     # prefill keys, the step's real queries and fresh K/V. The clustered
@@ -715,6 +980,9 @@ def kv_path(rt, dev, gen, all_kernels):
     M.decode_step(params, cfg, caches, KV_PROMPT,
                   tokens[:, KV_PROMPT:KV_PROMPT + 1], attn_override=capture)
     worst, plain_err, g = 0.0, 0.0, cfg.num_heads // cfg.num_kv_heads
+    # the per-head API's path: OnlineKVCluster, stack_heads and
+    # clustered_attention on the tiles routine; its launches counted alone
+    reset_launches(fa.flash_centroid_attention)
     for layer in KV_BOUND_LAYERS:
         keys = caches[layer]["k"][0, :KV_PROMPT].float()
         vals = caches[layer]["v"][0, :KV_PROMPT].float()
@@ -758,11 +1026,19 @@ def kv_path(rt, dev, gen, all_kernels):
                 raise AssertionError(f"layer {layer} head {qh}: error {err} "
                                      f"above the bound {bnd}")
             worst = max(worst, err / bnd)
+    tiles = fa.flash_centroid_attention.by_routine[fa.CENTROID_ROUTINES[
+        "tiles"]]
+    if tiles != 2 * len(KV_BOUND_LAYERS):
+        raise AssertionError(f"the per-head path launched the tiles routine "
+                             f"{tiles} times")
     print(f"  first decode step at layers {KV_BOUND_LAYERS}, all "
-          f"{cfg.num_heads} heads: clustered attention vs plain max |Δ| "
+          f"{cfg.num_heads} heads, per-head API (OnlineKVCluster, "
+          f"stack_heads, clustered_attention: {tiles} launches of the tiles "
+          f"routine): clustered attention vs plain max |Δ| "
           f"{plain_err:.3g} (float32 and the step's {cfg.dtype} with its "
           f"fresh row); error bound held, largest error / bound {worst:.3g}")
-    return launches["clustered"]
+    return {"flash_attention": lc["flash_attention"],
+            "flash_centroid_attention": tiles}, rows
 
 
 T0 = time.perf_counter()
@@ -1295,7 +1571,7 @@ def run_paths(rt, dev, gen, card, int_rate, popc_rate, data, x_fit, x_new,
     del u, het_model, url_model, het_est, url_est
     torch.cuda.empty_cache()
     flash_rows = flash_phase(dev, gen)
-    kv_launch = kv_path(rt, dev, gen, all_kernels)
+    kv_launch, decode_rows = kv_path(rt, dev, gen, all_kernels)
     kernels = [
         {"name": "distance_argmin_l2", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/distance_argmin.cu",
@@ -1333,7 +1609,7 @@ def run_paths(rt, dev, gen, card, int_rate, popc_rate, data, x_fit, x_new,
     for row in flash_rows:
         row["launches"] = kv_launch[row["name"]]
     print(f"smoke wall {time.perf_counter() - T0:.1f} s")
-    kernels += flash_rows
+    kernels += flash_rows + decode_rows
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

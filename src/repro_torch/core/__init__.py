@@ -1,1 +1,60 @@
-"""Core pipeline: LSH buckets, SILK seeding, centers and assignment, the facade."""
+"""Core pipeline: LSH buckets, SILK seeding, centers and assignment, the facade.
+
+Re-exports the names of ``repro.core.__all__`` that the port has, so that
+``from repro_torch.core import GEEK`` works where ``from repro.core import
+GEEK`` does; the surface is locked by ``tests/test_torch_api_surface.py``.
+Not ported yet, so not exported: ``CenterIndex``, ``build_center_index``,
+``predict_probed`` and ``patch_probed_fallback`` (ROADMAP.md, Queue 1
+item 9), ``KMeansPPSeeder`` and ``ScalableKMeansPPSeeder`` (item 10).
+"""
+from repro_torch.core.api import (  # noqa: F401
+    GEEK,
+    DenseData,
+    HeteroData,
+    KernelAssigner,
+    LSHBucketer,
+    SILKSeeder,
+    SparseData,
+    as_dataset,
+    discover,
+)
+from repro_torch.core.geek import GeekConfig, GeekResult  # noqa: F401
+from repro_torch.core.model import (  # noqa: F401
+    GeekModel,
+    NumericDiscretizer,
+    build_model,
+    predict,
+    update_centers,
+)
+from repro_torch.core.silk import SeedPairs, Seeds, silk_seeding  # noqa: F401
+from repro_torch.core.transform import (  # noqa: F401
+    HeteroTransform,
+    IdentityTransform,
+    SparseTransform,
+)
+
+#: the ported public surface (sorted; locked by tests/test_torch_api_surface.py)
+__all__ = [
+    "DenseData",
+    "GEEK",
+    "GeekConfig",
+    "GeekModel",
+    "GeekResult",
+    "HeteroData",
+    "HeteroTransform",
+    "IdentityTransform",
+    "KernelAssigner",
+    "LSHBucketer",
+    "NumericDiscretizer",
+    "SILKSeeder",
+    "SeedPairs",
+    "Seeds",
+    "SparseData",
+    "SparseTransform",
+    "as_dataset",
+    "build_model",
+    "discover",
+    "predict",
+    "silk_seeding",
+    "update_centers",
+]

@@ -43,6 +43,12 @@
 // wins ties whatever the order of the candidates. ||c||^2 comes from the
 // caller, as the reference computes it outside its kernel.
 //
+// The head-batched entry (repro_l2_argmin_heads_f32) routes the new keys
+// of all kv heads of one attention layer in one launch, in the decode step
+// of the KV-cache clustering: grid (row tiles, heads), each block the tile
+// routine below on its head's slices, so each head's result has the bits
+// of one launch on that head.
+//
 // The accumulating variant replaces _l2_acc_kernel (distance_argmin_l2
 // with accumulate=True), the assignment step of a Lloyd refine sweep: the
 // same labels and d2, plus per-cluster float32 sums one-hot(labels)^T @ x
@@ -387,6 +393,27 @@ l2_argmin_kernel(const float* __restrict__ x, const float* __restrict__ c,
                       vec != 0);
 }
 
+// The head-batched entry: grid (row tiles, heads). Head h's rows, centers,
+// ||c||^2, validity flags, labels and d2 are the h-th (n, d), (k, d), (k,),
+// (k,), (n,) and (n,) slices of stacked arrays; each block runs the same
+// tile routine as l2_argmin_kernel on its head's slices, so every head's
+// labels and d2 are the bits of one l2_argmin_kernel launch on that head
+// (first-index ties included: they never cross a head).
+template <bool RES>
+__global__ void __launch_bounds__(THREADS, 2)
+l2_argmin_heads_kernel(const float* __restrict__ x,
+                       const float* __restrict__ c,
+                       const float* __restrict__ csq,
+                       const int* __restrict__ valid, int n, int k, int d,
+                       int* __restrict__ labels, float* __restrict__ d2_out,
+                       int vec) {
+  extern __shared__ __align__(16) float smem[];
+  const long long h = blockIdx.y;
+  l2_argmin_tile<RES>(smem, x + h * n * d, c + h * k * d, csq + h * k,
+                      valid + h * k, n, k, d, (long long)blockIdx.x * BN,
+                      labels + h * n, d2_out + h * n, nullptr, vec != 0);
+}
+
 // One block per slot: zero the slot, then for each of its row tiles (grid
 // stride) the tile's argmin, and the tile's rows added into the slot's
 // (k, d) sums and (k,) counts in row order.
@@ -464,6 +491,29 @@ extern "C" int repro_l2_argmin_f32(const float* x, const float* c,
   if ((err = prepare(kern, res, d, k, &bytes)) != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)((n + BN - 1) / BN);
   kern<<<blocks, THREADS, bytes, (cudaStream_t)stream>>>(
+      x, c, csq, valid, n, k, d, labels, d2, aligned(x, c, d) ? 1 : 0);
+  return (int)cudaGetLastError();
+}
+
+// The head-batched variant: x (heads, n, d), c (heads, k, d), csq (heads,
+// k) float32; valid (heads, k) int32; labels and d2 (heads, n); all
+// contiguous. One launch for every head. Returns a CUDA error code.
+extern "C" int repro_l2_argmin_heads_f32(const float* x, const float* c,
+                                         const float* csq, const int* valid,
+                                         int heads, int n, int k, int d,
+                                         int* labels, float* d2, int device,
+                                         void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (heads > 65535) return (int)cudaErrorInvalidValue;
+  const bool res = d <= RES_MAX_D;
+  const auto kern =
+      res ? l2_argmin_heads_kernel<true> : l2_argmin_heads_kernel<false>;
+  size_t bytes;
+  if ((err = prepare(kern, res, d, k, &bytes)) != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((n + BN - 1) / BN), (unsigned)heads);
+  // with d % 4 == 0 every head's slice starts 16-byte aligned too
+  kern<<<grid, THREADS, bytes, (cudaStream_t)stream>>>(
       x, c, csq, valid, n, k, d, labels, d2, aligned(x, c, d) ? 1 : 0);
   return (int)cudaGetLastError();
 }

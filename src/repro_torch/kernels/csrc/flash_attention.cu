@@ -21,6 +21,23 @@
 //   an augmented dh+1 feature lane so that it can reuse the flash kernel's
 //   body; here the bias is added directly after the q c^T / sqrt(dh) product.
 //   It and the float32 flash routine share online_softmax_tile.
+// - flash_centroid_decode_kernel is the same function for the decode step
+//   alone (S = 1), as the clustered decode runs it once per attention
+//   layer per step: it reads the layer's stacked float32 state in place
+//   (centroids, value centroids, mass and validity, (Hkv, K, dh) and
+//   (Hkv, K)) and the step's fresh K/V row through two more pointers, with
+//   log-mass 0, so the caller builds no log-mass and concatenates nothing.
+//   The log-mass is head_state's rule: log(max(mass, 1e-9)) where the
+//   center is valid and its mass > 0, else -1e30 (logf, not __logf). One
+//   block of 256 threads per kv head serves the G = Hq / Hkv query heads of
+//   its group, so each state row is read once: the rows are staged in
+//   shared memory RC = 128 at a time (k_max + 1 = 65 rows in one pass on
+//   the main path), one thread per (query head, row) takes a dot product,
+//   one warp per query head the softmax (its max starts at -FLT_MAX, so
+//   rows that are all dead give the mean of the values, as the plain
+//   softmax does), one thread per (query head, feature) the weighted sum.
+//   Bound: the state's bytes once (~34 KB at K = 65, dh = 64): a few
+//   microseconds of latency, not bandwidth.
 //
 // Bound on this card. The prefill's causal half at S = 2,048 is 8.6 GFLOP
 // against 12.6 MB moved: above the bf16 tensor cores' ridge, so it is bound
@@ -71,6 +88,7 @@
 // 128 in shared memory (a template). Ragged S and K are masked here, not
 // padded by the caller. Mask arithmetic never makes an infinity: see
 // online_softmax_tile.
+#include <cfloat>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -374,6 +392,147 @@ cudaError_t launch_centroid(const void* q, const void* c, const void* vc,
 Strides strides_of(const long long* s) {
   return Strides{s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8]};
 }
+
+// ---------------------------------------------------------------------------
+// The decode routine of the centroid attention (see the file's header).
+// ---------------------------------------------------------------------------
+
+namespace dec {
+
+constexpr int THREADS = 256;
+constexpr int RC = 128;               // state rows staged per pass
+
+struct Args {
+  const void* q;                      // (B, 1, Hq, dh), T
+  long long qb, qh;                   // its batch and head strides
+  const float* c;                     // (Hkv, K, dh) key centroids
+  const float* vc;                    // (Hkv, K, dh) value centroids
+  const float* mass;                  // (Hkv, K)
+  const unsigned char* valid;         // (Hkv, K) bool
+  const void* xk;                     // (B, 1, Hkv, dh) fresh key, T, or null
+  const void* xv;                     // its value
+  long long xb, xh;                   // their batch and head strides
+  void* out;                          // (B, 1, Hq, dh) contiguous, T
+  int Hq, Hkv, K, dh;
+  float scale;
+};
+
+// Shared memory in floats: one staged pass of RC rows, the group's
+// queries, their scores (then weights) over every row, their outputs, and
+// their softmax sums.
+__host__ __device__ inline int smem_floats(int G, int rows, int dh) {
+  return RC * (dh + 1) + G * dh + G * rows + G * dh + G;
+}
+
+// One block per (kv head, batch row): the G = Hq / Hkv query heads of the
+// group against the head's K centroid rows and the fresh row.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+    flash_centroid_decode_kernel(Args a) {
+  extern __shared__ __align__(16) float smem[];
+  const int hk = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  const int G = a.Hq / a.Hkv, dh = a.dh, lds = dh + 1, K = a.K;
+  const bool extra = a.xk != nullptr;
+  const int rows = K + (extra ? 1 : 0);
+  float* buf = smem;                  // [RC][dh + 1]: odd rows, no conflicts
+  float* qs = buf + RC * lds;         // [G][dh]
+  float* sc = qs + G * dh;            // [G][rows]
+  float* os = sc + G * rows;          // [G][dh]
+  float* ls = os + G * dh;            // [G]
+  const T* qp = static_cast<const T*>(a.q) + b * a.qb + (long long)hk * G * a.qh;
+  for (int i = tid; i < G * dh; i += THREADS) {
+    qs[i] = ld(qp + (i / dh) * a.qh + i % dh);
+    os[i] = 0.f;
+  }
+  const long long head = (long long)hk * K;
+  const float* cp = a.c + head * dh;
+  const float* vp = a.vc + head * dh;
+  const long long xo = b * a.xb + (long long)hk * a.xh;
+  const T* xk = extra ? static_cast<const T*>(a.xk) + xo : nullptr;
+  const T* xv = extra ? static_cast<const T*>(a.xv) + xo : nullptr;
+  // rows [r0, r0 + nr) of the state (row K: the fresh row) into buf
+  const auto stage = [&](const float* state, const T* fresh, int r0, int nr) {
+    for (int i = tid; i < nr * dh; i += THREADS) {
+      const int r = i / dh, e = i % dh, j = r0 + r;
+      buf[r * lds + e] = j < K ? state[(long long)j * dh + e] : ld(fresh + e);
+    }
+  };
+
+  // scores: q . c * scale + log-mass, head_state's rule computed here
+  for (int r0 = 0; r0 < rows; r0 += RC) {
+    const int nr = min(RC, rows - r0);
+    __syncthreads();                  // the queries are in; buf is free
+    stage(cp, xk, r0, nr);
+    __syncthreads();
+    for (int i = tid; i < G * nr; i += THREADS) {
+      const int g = i / nr, r = i % nr, j = r0 + r;
+      const float* cr = buf + r * lds;
+      const float* qg = qs + g * dh;
+      float dot = 0.f;
+      for (int e = 0; e < dh; ++e) dot = fmaf(qg[e], cr[e], dot);
+      float bias = 0.f;               // the fresh row: log-mass 0
+      if (j < K) {
+        const float w = a.mass[head + j];
+        bias = (a.valid[head + j] != 0 && w > 0.f) ? logf(fmaxf(w, 1e-9f))
+                                                   : NEG;
+      }
+      sc[g * rows + j] = dot * a.scale + bias;
+    }
+  }
+  __syncthreads();
+
+  // softmax over every row, one warp per query head of the group
+  const int warp = tid / 32, lane = tid % 32;
+  for (int g = warp; g < G; g += THREADS / 32) {
+    float* s = sc + g * rows;
+    float m = -FLT_MAX;
+    for (int j = lane; j < rows; j += 32) m = fmaxf(m, s[j]);
+    for (int o = 16; o > 0; o >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    float l = 0.f;
+    for (int j = lane; j < rows; j += 32) {
+      const float p = expf(s[j] - m);
+      s[j] = p;
+      l += p;
+    }
+    for (int o = 16; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
+    if (lane == 0) ls[g] = l;
+  }
+
+  // weights times value rows, one thread per (query head, feature)
+  for (int r0 = 0; r0 < rows; r0 += RC) {
+    const int nr = min(RC, rows - r0);
+    __syncthreads();                  // the weights are in; buf is free
+    stage(vp, xv, r0, nr);
+    __syncthreads();
+    for (int i = tid; i < G * dh; i += THREADS) {
+      const float* p = sc + (i / dh) * rows + r0;
+      const int e = i % dh;
+      float acc = os[i];
+      for (int r = 0; r < nr; ++r) acc = fmaf(p[r], buf[r * lds + e], acc);
+      os[i] = acc;
+    }
+  }
+  __syncthreads();
+  T* op = static_cast<T*>(a.out) + ((long long)b * a.Hq + (long long)hk * G) * dh;
+  for (int i = tid; i < G * dh; i += THREADS)
+    st(op + i, os[i] / fmaxf(ls[i / dh], 1e-30f));
+}
+
+template <typename T>
+cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
+  const int G = a.Hq / a.Hkv;
+  const int rows = a.K + (a.xk != nullptr ? 1 : 0);
+  const int bytes = smem_floats(G, rows, a.dh) * (int)sizeof(float);
+  auto kern = flash_centroid_decode_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  kern<<<dim3((unsigned)a.Hkv, (unsigned)B), THREADS, bytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace dec
 
 // ---------------------------------------------------------------------------
 // The bf16 routine on the tensor cores (see the file's header).
@@ -785,5 +944,33 @@ extern "C" int repro_flash_centroid_attention(
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  return (int)err;
+}
+
+// The decode routine. dims: B, Hq, Hkv, K, dh (Hkv | Hq, dh <= 128).
+// strides: q (b, h), then the fresh rows (b, h), in elements; the feature
+// axis of each is contiguous. c, vc (Hkv, K, dh), mass and valid (Hkv, K)
+// contiguous, read in place. xk and xv may be null (no fresh row). dtype:
+// 0 float32, 1 bfloat16, for q, xk, xv and out alike. Returns a CUDA error
+// code, 0 on success.
+extern "C" int repro_flash_centroid_decode(
+    const void* q, const float* c, const float* vc, const float* mass,
+    const unsigned char* valid, const void* xk, const void* xv, void* out,
+    int dtype, const long long* dims, const long long* strides, float scale,
+    int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const dec::Args a{q,     strides[0], strides[1], c,          vc,
+                    mass,  valid,      xk,         xv,         strides[2],
+                    strides[3], out,   (int)dims[1], (int)dims[2],
+                    (int)dims[3], (int)dims[4], scale};
+  const int B = (int)dims[0];
+  if (a.dh < 1 || a.dh > 128 || a.Hkv < 1 || a.Hq % a.Hkv != 0 ||
+      (xk == nullptr) != (xv == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0) err = dec::launch<float>(a, B, s);
+  else if (dtype == 1) err = dec::launch<__nv_bfloat16>(a, B, s);
+  else return (int)cudaErrorInvalidValue;
   return (int)err;
 }

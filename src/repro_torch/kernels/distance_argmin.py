@@ -19,6 +19,12 @@ to the lowest center index by a lexicographic (d², index) reduction. The
 plain version is ``ref.distance_argmin_l2_ref`` (and, row-blocked,
 ``core.assign.assign_l2``).
 
+``distance_argmin_l2_heads`` is a head-batched entry of the same kernel:
+the decode step of the KV-cache clustering routes each kv head's new keys
+against that head's centroids, all heads of a layer in one launch (grid:
+row tiles × heads), each head's labels and d² the bits of one launch on
+that head. Its plain version is ``ref.distance_argmin_l2_heads_ref``.
+
 ``distance_argmin_l2_accumulate`` replaces the same function with
 ``accumulate=True`` (the TPU kernel ``_l2_acc_kernel``), the assignment of
 each Lloyd refine sweep of the table-sync fit: the same labels and d², bit
@@ -40,6 +46,8 @@ from repro_torch.kernels import build
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
              + [ctypes.c_int, ctypes.c_void_p])
+_HEADS_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
 _ACC_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
                  + [ctypes.c_void_p] * 4 + [ctypes.c_int]
                  + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
@@ -52,6 +60,12 @@ BN = 128   # rows per tile, as in the source
 def _entry():
     fn = build.load("distance_argmin").repro_l2_argmin_f32
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    return fn
+
+
+def _heads_entry():
+    fn = build.load("distance_argmin").repro_l2_argmin_heads_f32
+    fn.argtypes, fn.restype = _HEADS_ARGTYPES, ctypes.c_int
     return fn
 
 
@@ -120,6 +134,59 @@ def distance_argmin_l2(x: torch.Tensor, centers: torch.Tensor,
 
 
 distance_argmin_l2.launches = 0
+
+
+def distance_argmin_l2_heads(x: torch.Tensor, centers: torch.Tensor,
+                             csq: torch.Tensor, center_valid: torch.Tensor
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the head-batched kernel once for all heads: (labels (H, n)
+    int32, squared distances (H, n) float32).
+
+    ``x`` (H, n, d) and ``centers`` (H, k, d) float32 or bfloat16 (cast to
+    float32 here), ``csq`` (H, k) float32 the centers' squared norms (the
+    caller computes them once per update of the centers), ``center_valid``
+    (H, k) bool or int32, all on one CUDA device. Head h's result equals
+    ``distance_argmin_l2(x[h], centers[h], center_valid[h])`` bit for bit
+    when ``csq[h]`` has its bits. Counts one launch in
+    ``distance_argmin_l2_heads.launches``.
+    """
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"distance_argmin_l2_heads runs on CUDA tensors, "
+                         f"got {dev}")
+    if x.ndim != 3 or centers.ndim != 3 or x.shape[0] != centers.shape[0] \
+            or x.shape[2] != centers.shape[2]:
+        raise ValueError(f"expected x (H, n, d) and centers (H, k, d), got "
+                         f"{tuple(x.shape)} and {tuple(centers.shape)}")
+    H, n, d = x.shape
+    k = centers.shape[1]
+    if tuple(csq.shape) != (H, k) or tuple(center_valid.shape) != (H, k):
+        raise ValueError(f"csq and center_valid must be ({H}, {k})")
+    if any(t.device != dev for t in (centers, csq, center_valid)):
+        raise ValueError("x, centers, csq and center_valid must share a "
+                         "device")
+    if H == 0 or k == 0 or d == 0:
+        raise ValueError("need at least one head, center and feature")
+    if H * max(n, k) * d >= 2**31:
+        raise ValueError("the stacked arrays must index in int32")
+    xf = x.to(torch.float32).contiguous()
+    cf = centers.to(torch.float32).contiguous()
+    cq = csq.to(torch.float32).contiguous()
+    valid = center_valid.to(torch.int32).contiguous()
+    labels = torch.empty((H, n), dtype=torch.int32, device=dev)
+    d2 = torch.empty((H, n), dtype=torch.float32, device=dev)
+    if n == 0:
+        return labels, d2
+    err = _heads_entry()(xf.data_ptr(), cf.data_ptr(), cq.data_ptr(),
+                         valid.data_ptr(), H, n, k, d, labels.data_ptr(),
+                         d2.data_ptr(), _device_index(dev),
+                         torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "distance_argmin_l2_heads")
+    distance_argmin_l2_heads.launches += 1
+    return labels, d2
+
+
+distance_argmin_l2_heads.launches = 0
 
 
 def distance_argmin_l2_accumulate(x: torch.Tensor, centers: torch.Tensor,

@@ -14,6 +14,15 @@ clustered-KV decode step ``softmax_K(q·c/√dh + log_mass) @ v_cent``
 flash kernel through an augmented ``dh + 1`` lane; here ``log_mass`` is a
 bias added after the product, in the same tile routine.
 
+``flash_centroid_decode`` is the same function for the decode step alone
+(S = 1), a second routine of ``flash_centroid_attention``: it reads one
+layer's stacked clustered state in place (centroids, value centroids,
+mass and validity) and the step's fresh K/V row through two more
+pointers with log-mass 0, computing the log-mass from the mass inside the
+kernel, so the step builds no snapshot and concatenates nothing. One block
+per kv head serves its group of query heads. Its plain version is
+``ref.centroid_decode_ref``.
+
 Bound on this card: the prefill's attention is bound by operations (8.6
 GFLOP causal against 12.6 MB at Qwen3-0.6B's S = 2,048), the decode
 step's by launch latency. Design (``csrc/flash_attention.cu``): one block
@@ -43,11 +52,20 @@ _CENTROID_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p,
                                                ctypes.c_void_p,
                                                ctypes.c_float, ctypes.c_int,
                                                ctypes.c_void_p])
+_DECODE_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_void_p,
+                                              ctypes.c_void_p, ctypes.c_float,
+                                              ctypes.c_int, ctypes.c_void_p])
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the routine ``flash_attention`` launches for each element type
 ROUTINES = {torch.bfloat16: "bf16 tensor cores (mma.sync, cp.async)",
             torch.float32: "float32 CUDA cores (FMA)"}
+#: the routines of ``flash_centroid_attention``'s function, by entry
+CENTROID_ROUTINES = {"tiles": "(B, S) query tiles (flash_centroid_kernel)",
+                     "decode": "decode step, layer state in place "
+                               "(flash_centroid_decode_kernel)"}
 MAX_DH = 128
+#: the decode routine's shared memory limit (Hopper: 227 KiB a block)
+_MAX_SMEM = 227 * 1024
 
 
 _entries: dict = {}
@@ -137,7 +155,9 @@ def flash_centroid_attention(q: torch.Tensor, centers: torch.Tensor,
     (B, Hq, S, dh) over centers and v_cent (B, Hkv, K, dh), log_mass
     (B, Hkv, K) (``-1e30`` = dead; all dead gives the mean of v_cent).
     Returns (B, Hq, S, dh) in q's dtype. Counts one launch in
-    ``flash_centroid_attention.launches``."""
+    ``flash_centroid_attention.launches``, which counts the launches of
+    both routines of the function (``flash_centroid_decode``'s too), and
+    one in ``flash_centroid_attention.by_routine`` under this routine."""
     (qc, cc, vc), dt = _prepare(q, (centers, v_cent),
                                 "flash_centroid_attention")
     B, Hq, S, dh = qc.shape
@@ -162,7 +182,90 @@ def flash_centroid_attention(q: torch.Tensor, centers: torch.Tensor,
         _device_index(q.device), torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_centroid_attention")
     flash_centroid_attention.launches += 1
+    flash_centroid_attention.by_routine[CENTROID_ROUTINES["tiles"]] += 1
     return out.to(q.dtype)
 
 
 flash_centroid_attention.launches = 0
+flash_centroid_attention.by_routine = dict.fromkeys(CENTROID_ROUTINES.values(),
+                                                    0)
+
+
+def _decode_smem_bytes(group: int, rows: int, dh: int) -> int:
+    """Shared memory of one decode block (``csrc``'s ``dec::smem_floats``)."""
+    return 4 * (128 * (dh + 1) + group * (2 * dh + rows + 1))
+
+
+def flash_centroid_decode(q: torch.Tensor, centers: torch.Tensor,
+                          v_cent: torch.Tensor, mass: torch.Tensor,
+                          center_valid: torch.Tensor,
+                          extra_k: torch.Tensor | None = None,
+                          extra_v: torch.Tensor | None = None
+                          ) -> torch.Tensor:
+    """Launch the decode routine: ``softmax(q·c/√dh + log_mass) @ v_cent``
+    of the one-row queries q (B, 1, Hq, dh) (the layer layout) over one
+    layer's state, read in place: centers and v_cent (Hkv, K, dh) float32,
+    mass (Hkv, K) float32 and center_valid (Hkv, K) bool, log_mass =
+    log(max(mass, 1e-9)) where valid and mass > 0, else -1e30; plus, when
+    given, the fresh rows extra_k, extra_v (B, 1, Hkv, dh) with log-mass 0.
+    Returns (B, 1, Hq, dh) in q's dtype. Counts one launch in
+    ``flash_centroid_attention.launches`` and in its ``by_routine`` under
+    this routine."""
+    what = "flash_centroid_decode"
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"{what} runs on CUDA tensors, got {dev}")
+    state = (centers, v_cent, mass, center_valid)
+    extras = () if extra_k is None else (extra_k, extra_v)
+    if (extra_k is None) != (extra_v is None):
+        raise ValueError(f"{what}: give extra_k and extra_v together")
+    if any(t.device != dev for t in state + extras):
+        raise ValueError(f"{what}: inputs must share a device")
+    if q.ndim != 4 or q.shape[1] != 1:
+        raise ValueError(f"{what}: expected q (B, 1, Hq, dh), got "
+                         f"{tuple(q.shape)}")
+    B, _, Hq, dh = q.shape
+    if centers.ndim != 3 or v_cent.shape != centers.shape or \
+            centers.shape[2] != dh:
+        raise ValueError(f"{what}: centers and v_cent must be (Hkv, K, {dh})")
+    Hkv, K = centers.shape[:2]
+    if tuple(mass.shape) != (Hkv, K) or tuple(center_valid.shape) != (Hkv, K):
+        raise ValueError(f"{what}: mass and center_valid must be ({Hkv}, {K})")
+    if any(tuple(t.shape) != (B, 1, Hkv, dh) for t in extras):
+        raise ValueError(f"{what}: extra rows must be ({B}, 1, {Hkv}, {dh})")
+    if Hkv == 0 or Hq % Hkv:
+        raise ValueError(f"{what}: GQA needs Hkv | Hq, got {Hkv}, {Hq}")
+    if not 1 <= dh <= MAX_DH:
+        raise ValueError(f"{what}: head dim {dh} not in [1, {MAX_DH}]")
+    rows = K + (1 if extras else 0)
+    if rows == 0 or _decode_smem_bytes(Hq // Hkv, rows, dh) > _MAX_SMEM:
+        raise ValueError(f"{what}: {rows} rows do not fit one block")
+    types = {q.dtype, *(t.dtype for t in extras)}
+    if not types <= set(_DTYPES):
+        raise TypeError(f"{what}: expected float32 or bfloat16, got {types}")
+    dt = q.dtype if len(types) == 1 else torch.float32
+    qc, *xs = (t.to(dt) for t in (q, *extras))
+    qc, *xs = (t if t.stride(-1) == 1 else t.contiguous() for t in (qc, *xs))
+    c, vc, m = (t.to(torch.float32).contiguous()
+                for t in (centers, v_cent, mass))
+    valid = center_valid.to(torch.bool).contiguous()
+    out = torch.empty((B, 1, Hq, dh), dtype=dt, device=dev)
+    if B == 0:
+        return out.to(q.dtype)
+    if xs and xs[0].stride()[:3] != xs[1].stride()[:3]:
+        xs = [t.contiguous() for t in xs]     # the kernel takes one stride set
+    xk, xv = xs if xs else (None, None)
+    dims = (ctypes.c_longlong * 5)(B, Hq, Hkv, K, dh)
+    strides = (ctypes.c_longlong * 4)(
+        qc.stride(0), qc.stride(2),
+        *((xk.stride(0), xk.stride(2)) if xs else (0, 0)))
+    err = _entry("repro_flash_centroid_decode", _DECODE_ARGTYPES)(
+        qc.data_ptr(), c.data_ptr(), vc.data_ptr(), m.data_ptr(),
+        valid.data_ptr(), None if xk is None else xk.data_ptr(),
+        None if xv is None else xv.data_ptr(), out.data_ptr(), _DTYPES[dt],
+        dims, strides, 1.0 / math.sqrt(dh), _device_index(dev),
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, what)
+    flash_centroid_attention.launches += 1
+    flash_centroid_attention.by_routine[CENTROID_ROUTINES["decode"]] += 1
+    return out.to(q.dtype)

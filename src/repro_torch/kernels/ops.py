@@ -34,6 +34,17 @@ def distance_argmin_l2(x, centers, center_valid, *, accumulate: bool = False,
     return _da.distance_argmin_l2(x, centers, center_valid)
 
 
+def distance_argmin_l2_heads(x, centers, csq, center_valid):
+    """Head-batched L2 assignment: x (H, n, d) against centers (H, k, d),
+    ‖c‖² (H, k) and validity (H, k) -> (labels (H, n) int32, d² (H, n)).
+    One launch for all heads on the card; head by head ``assign_l2`` on
+    the CPU."""
+    if _on_cpu(x):
+        return _ref.distance_argmin_l2_heads_ref(x, centers, csq,
+                                                 center_valid)
+    return _da.distance_argmin_l2_heads(x, centers, csq, center_valid)
+
+
 def distance_argmin_hamming(codes, centers, center_valid, *,
                             block: int = 4096):
     """(labels int32, mismatch counts float32), the contract of
@@ -87,3 +98,46 @@ def flash_centroid_attention(q, centers, v_cent, log_mass):
     if _on_cpu(q):
         return _ref.centroid_attention_ref(q, centers, v_cent, log_mass)
     return _fa.flash_centroid_attention(q, centers, v_cent, log_mass)
+
+
+def flash_centroid_decode(q, centers, v_cent, mass, center_valid,
+                          extra_k=None, extra_v=None):
+    """The decode step's centroid attention over one layer's state, read in
+    place: ``ref.centroid_decode_ref``'s function."""
+    if _on_cpu(q):
+        return _ref.centroid_decode_ref(q, centers, v_cent, mass,
+                                        center_valid, extra_k, extra_v)
+    return _fa.flash_centroid_decode(q, centers, v_cent, mass, center_valid,
+                                     extra_k, extra_v)
+
+
+#: every wrapper that counts its launches
+COUNTED = (_da.distance_argmin_l2, _da.distance_argmin_l2_heads,
+           _da.distance_argmin_l2_accumulate, _dh.distance_argmin_hamming,
+           _dh.distance_argmin_hamming_packed, _mh.minhash_segments,
+           _fa.flash_attention, _fa.flash_centroid_attention)
+
+
+def launch_counts() -> dict:
+    """Every launch counter: ``{(wrapper, routine or None): count}``."""
+    out = {}
+    for fn in COUNTED:
+        out[(fn.__name__, None)] = fn.launches
+        for routine, n in getattr(fn, "by_routine", {}).items():
+            out[(fn.__name__, routine)] = n
+    return out
+
+
+def add_launch_counts(counts: dict, times: int = 1) -> None:
+    """Add ``times`` × ``counts`` (keys as ``launch_counts`` gives them) to
+    the counters. A captured CUDA graph launches, at each replay, the
+    kernels its capture counted, and launched none at the capture: the
+    decode loop takes the capture's counts back once and adds them at
+    every replay."""
+    by_name = {fn.__name__: fn for fn in COUNTED}
+    for (name, routine), n in counts.items():
+        fn = by_name[name]
+        if routine is None:
+            fn.launches += times * n
+        else:
+            fn.by_routine[routine] += times * n

@@ -22,6 +22,20 @@ def distance_argmin_l2_ref(x, centers, center_valid):
     return lab.to(torch.int32), torch.clamp(mind, min=0.0)
 
 
+def distance_argmin_l2_heads_ref(x, centers, csq, center_valid):
+    """Head by head ``core.assign.assign_l2``: x (H, n, d) against centers
+    (H, k, d) -> (labels (H, n) int32, squared distances (H, n) float32).
+    ``assign_l2`` computes ‖c‖² itself (as a per-head ``predict`` on the
+    CPU does), so ``csq`` (H, k), the kernel's input, is not read."""
+    from repro_torch.core.assign import assign_l2
+    del csq
+    out = [assign_l2(x[h].to(torch.float32), centers[h].to(torch.float32),
+                     center_valid[h].to(torch.bool))
+           for h in range(x.shape[0])]
+    return (torch.stack([lab for lab, _ in out]),
+            torch.stack([d2 for _, d2 in out]))
+
+
 def distance_argmin_hamming_ref(codes, centers, center_valid):
     """(labels int32, mismatch counts int32); an invalid center counts
     d + 1, as ``core.assign.assign_hamming`` (the reference's main path)
@@ -85,6 +99,30 @@ def centroid_attention_ref(q, centers, v_cent, log_mass):
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p,
                         vc.to(torch.float32)).to(q.dtype)
+
+
+def centroid_decode_ref(q, centers, v_cent, mass, center_valid,
+                        extra_k=None, extra_v=None):
+    """The decode routine's function: q (B, 1, Hq, dh) over one layer's
+    state, centers and v_cent (Hkv, K, dh), mass and center_valid (Hkv,
+    K), the log-mass by ``OnlineKVCluster.head_state``'s rule, plus the
+    fresh rows extra_k, extra_v (B, 1, Hkv, dh) with log-mass 0: exactly
+    ``serve.kv_cluster.clustered_attention(q, state, extra_k=, extra_v=)``.
+    Returns (B, 1, Hq, dh) in q's dtype."""
+    B = q.shape[0]
+    hkv, K, dh = centers.shape
+    live = center_valid & (mass > 0)
+    lm = torch.where(live, torch.log(torch.clamp(mass, min=1e-9)), -1e30)
+    c = centers.to(torch.float32).expand(B, hkv, K, dh)
+    vc = v_cent.to(torch.float32).expand(B, hkv, K, dh)
+    lm = lm.to(torch.float32).expand(B, hkv, K)
+    if extra_k is not None:
+        c = torch.cat([c, extra_k.to(torch.float32).transpose(1, 2)], dim=2)
+        vc = torch.cat([vc, extra_v.to(torch.float32).transpose(1, 2)], dim=2)
+        lm = torch.cat([lm, torch.zeros((B, hkv, 1), dtype=torch.float32,
+                                        device=q.device)], dim=2)
+    o = centroid_attention_ref(q.transpose(1, 2), c, vc, lm)
+    return o.transpose(1, 2).to(q.dtype)
 
 
 def attention_ref(q, k, v, *, causal=True):

@@ -9,7 +9,9 @@ and ``chunked_cross_entropy`` wait for the training slice (ROADMAP.md).
 
 KV caches are updated in place (the reference returns new arrays): a
 decode step writes one row per layer instead of copying the cache.
-``cache_len`` is a Python int, the number of rows already cached.
+``cache_len`` is the number of rows already cached: a Python int, or a
+one-element integer tensor on the cache's device, which a captured CUDA
+graph reads at each replay (``serve.kv_cluster``'s decode step).
 """
 from __future__ import annotations
 
@@ -123,10 +125,17 @@ def attn_qkv(p, x: torch.Tensor, cfg: ArchConfig, *, positions: torch.Tensor):
 
 
 def cache_write(cache: dict, k: torch.Tensor, v: torch.Tensor,
-                cache_len: int) -> dict:
+                cache_len) -> dict:
     """Write the fresh (B, S, Hkv, hd) K/V at rows ``cache_len`` onwards,
-    in place; returns ``cache``."""
+    in place; returns ``cache``. A tensor ``cache_len`` is read on the
+    device (``index_copy_``), never by the host."""
     S = k.shape[1]
+    if isinstance(cache_len, torch.Tensor):
+        rows = cache_len.reshape(-1)[:1].to(torch.int64) + torch.arange(
+            S, device=k.device)
+        cache["k"].index_copy_(1, rows, k.to(cache["k"].dtype))
+        cache["v"].index_copy_(1, rows, v.to(cache["v"].dtype))
+        return cache
     cache["k"][:, cache_len:cache_len + S] = k
     cache["v"][:, cache_len:cache_len + S] = v
     return cache
@@ -146,7 +155,7 @@ def cache_attention(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor, *,
     kernel.
     """
     S = q.shape[1]
-    if cache_len == 0 and S > 1:
+    if S > 1 and cache_len == 0:
         o = kops.flash_attention(q.transpose(1, 2), kc[:, :S].transpose(1, 2),
                                  vc[:, :S].transpose(1, 2), causal=True)
         return o.transpose(1, 2)

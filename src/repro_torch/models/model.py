@@ -79,16 +79,21 @@ def prefill_step(params, cfg: ArchConfig, inputs):
     return logits, new_caches
 
 
-def decode_step(params, cfg: ArchConfig, caches, cache_len: int, tokens,
+def decode_step(params, cfg: ArchConfig, caches, cache_len, tokens,
                 attn_override=None):
     """One decode step. tokens: (B, 1) ids or (B, 1, d) stub embeddings;
-    ``cache_len``: tokens already in the cache (an int). Returns (logits
-    (B, V) float32, caches), the caches updated in place.
+    ``cache_len``: tokens already in the cache, an int or a one-element
+    integer tensor on the device (then the step never reads it on the
+    host, and a CUDA graph of it replays at any position). Returns
+    (logits (B, V) float32, caches), the caches updated in place.
     ``attn_override`` swaps the attention step per layer (see
     ``T.stack_apply``)."""
     B = tokens.shape[0]
-    positions = torch.full((B, 1), cache_len, dtype=torch.int32,
-                           device=params["head"]["w"].device)
+    if isinstance(cache_len, torch.Tensor):
+        positions = cache_len.reshape(1, 1).to(torch.int32).expand(B, 1)
+    else:
+        positions = torch.full((B, 1), cache_len, dtype=torch.int32,
+                               device=params["head"]["w"].device)
     x, new_caches, _ = forward(params, cfg, tokens, positions=positions,
                                caches=caches, cache_len=cache_len,
                                attn_override=attn_override)

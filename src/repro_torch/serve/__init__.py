@@ -6,15 +6,16 @@ ported yet (ROADMAP.md, Queue 1 item 13).
 """
 from repro_torch.serve.kv_cluster import (  # noqa: F401
     KVState,
+    LayerKVCluster,
     OnlineKVCluster,
     clustered_attention,
     clustered_decode,
     default_kv_config,
     ema_update,
-    make_clustered_step,
+    make_layer_step,
     stack_heads,
 )
 
-__all__ = ["KVState", "OnlineKVCluster", "clustered_attention",
-           "clustered_decode", "default_kv_config", "ema_update",
-           "make_clustered_step", "stack_heads"]
+__all__ = ["KVState", "LayerKVCluster", "OnlineKVCluster",
+           "clustered_attention", "clustered_decode", "default_kv_config",
+           "ema_update", "make_layer_step", "stack_heads"]

@@ -20,6 +20,14 @@ The in-flight token's own K/V rides along unclustered (log-mass 0), so
 the newest position is always exact; it joins a cluster via ``update``
 right after the step.
 
+``OnlineKVCluster`` is the per-head API. ``clustered_decode`` keeps each
+attention layer's heads as one ``LayerKVCluster``: stacked device tensors
+allocated once, fitted head by head as ``OnlineKVCluster`` fits and
+written in place, routed in one head-batched launch and EMA-updated in
+one pass for all heads. Its decode step reads nothing on the host, so on
+the card it is captured once as a CUDA graph and replayed (the reference
+jits its step); on the CPU the same step runs eagerly.
+
 Differences from the reference. Each fit draws from a ``torch.Generator``
 seeded from ``(seed, layer, kv head, fit number)``; ``draws`` hands a fit
 given arrays instead (the tests hand it the reference's). The center
@@ -49,6 +57,8 @@ from repro_torch.models import transformer as T
 from repro_torch.utils.device import full_precision_matmul, resolve_device
 
 _NEG = -1e30
+#: the ``torch.profiler`` range of each decode step of ``clustered_decode``
+STEP_SPAN = "clustered_decode.step"
 
 
 def default_kv_config(k_max: int = 64) -> GeekConfig:
@@ -89,11 +99,14 @@ def _counts(labels: torch.Tensor, k: int) -> torch.Tensor:
                                                      dtype=torch.float32))
 
 
-def _row_sums(x: torch.Tensor, labels: torch.Tensor, k: int) -> torch.Tensor:
-    """(k, d) float32 sums of the rows of ``x`` by label. One row (a decode
-    step's) lands alone, so ``index_add_`` adds it to 0 exactly; more rows
-    take the sorted segment sums, which repeat their bits on the card."""
-    if x.shape[0] <= 1:
+def _row_sums(x: torch.Tensor, labels: torch.Tensor, k: int,
+              rows: int | None = None) -> torch.Tensor:
+    """(k, d) float32 sums of the rows of ``x`` by label. ``rows`` is the
+    number of rows each head routed (``x.shape[0]``: one head). One row a
+    head (a decode step's) lands alone in its cluster, so ``index_add_``
+    adds it to 0 exactly; more rows take the sorted segment sums, which
+    repeat their bits on the card and add a segment's rows in row order."""
+    if (x.shape[0] if rows is None else rows) <= 1:
         out = torch.zeros((k, x.shape[1]), dtype=torch.float32,
                           device=x.device)
         return out.index_add_(0, labels, x.to(torch.float32))
@@ -121,13 +134,24 @@ def ema_update(centers, radius, mass, v_cent, v_radius, keys, values, labels,
     -------
     (centers, radius, mass, v_cent, v_radius), same shapes and dtypes.
     """
+    return _ema(centers, radius, mass, v_cent, v_radius, keys, values,
+                labels, ema=ema)
+
+
+def _ema(centers, radius, mass, v_cent, v_radius, keys, values, labels, *,
+         ema: float, rows: int | None = None):
+    """``ema_update``. ``LayerKVCluster`` runs it once for all heads of a
+    layer, flattened to (heads·K, …) with head h's labels offset by h·K:
+    every per-cluster quantity is independent of the others, so each head
+    gets its own result's bits. ``rows`` is the rows each head routed
+    (``_row_sums``)."""
     k_max = centers.shape[0]
     lab = labels.to(torch.int64)
     m_new = _counts(lab, k_max)
     hit = m_new > 0
     safe = torch.clamp(m_new, min=1.0)[:, None]
-    kmean = _row_sums(keys, lab, k_max) / safe
-    vmean = _row_sums(values, lab, k_max) / safe
+    kmean = _row_sums(keys, lab, k_max, rows) / safe
+    vmean = _row_sums(values, lab, k_max, rows) / safe
     decay = torch.pow(1.0 - ema, m_new)[:, None]
     c_new = torch.where(hit[:, None], centers * decay + (1.0 - decay) * kmean,
                         centers)
@@ -164,6 +188,44 @@ def fit_seed(*parts: int) -> int:
     return int.from_bytes(digest, "little") >> 1
 
 
+def _check_knobs(ema: float, probes) -> None:
+    if not 0.0 < ema <= 1.0:
+        raise ValueError(f"ema must be in (0, 1], got {ema}")
+    if probes is not None:
+        raise NotImplementedError("probed routing (probes=) needs the center "
+                                  "index (ROADMAP.md, Queue 1 item 9)")
+
+
+def _fit_head(gcfg: GeekConfig, seed: tuple, fit: int, draws, device,
+              keys, values):
+    """Fit number ``fit`` of one head: a GEEK fit of its (n, hd) keys from
+    a generator seeded with ``fit_seed(*seed, fit)`` (or ``draws(fit)``'s
+    arrays), then the value side. Returns (model, overflow, mass, v_cent,
+    v_radius, v_max), v_max a float32 0-d tensor on the device."""
+    bucketer = None if draws is None else draws(fit)
+    est = GEEK(gcfg, bucketer=bucketer, device=device)
+    gen = torch.Generator(device=device).manual_seed(fit_seed(*seed, fit))
+    keys = torch.as_tensor(keys, device=device).to(torch.float32)
+    model = est.fit(DenseData(keys), gen)
+    values = torch.as_tensor(values, device=device).to(torch.float32)
+    mass, v_cent, v_radius = _value_stats(est.result_.labels, values,
+                                          model.center_valid)
+    v_max = torch.linalg.norm(values, dim=-1).max()
+    return model, int(est.result_.overflow), mass, v_cent, v_radius, v_max
+
+
+def _error_bound(live, radius, v_radius, v_max, hd: int,
+                 q_norm: float) -> float:
+    """``r_v + (e^{2ε} − 1)·v_max`` with ``ε = q_norm · r_k / √hd``, the
+    radii's maxima over the ``live`` clusters: one read of the device."""
+    r_k, r_v, v_max = torch.stack([
+        torch.max(torch.where(live, radius, 0.0)),
+        torch.max(torch.where(live, v_radius, 0.0)),
+        v_max]).tolist()
+    eps = q_norm * r_k / math.sqrt(hd)
+    return r_v + (math.exp(2.0 * eps) - 1.0) * v_max
+
+
 class OnlineKVCluster:
     """Streaming GEEK clustering of one attention head's KV stream.
 
@@ -194,12 +256,7 @@ class OnlineKVCluster:
     def __init__(self, gcfg: GeekConfig | None = None, *, ema: float = 0.1,
                  probes: int | None = None, seed=0, draws=None, device=None):
         self.gcfg = default_kv_config() if gcfg is None else gcfg
-        if not 0.0 < ema <= 1.0:
-            raise ValueError(f"ema must be in (0, 1], got {ema}")
-        if probes is not None:
-            raise NotImplementedError("probed routing (probes=) needs the "
-                                      "center index (ROADMAP.md, Queue 1 "
-                                      "item 9)")
+        _check_knobs(ema, probes)
         self.ema = float(ema)
         self.seed = tuple(seed) if isinstance(seed, (tuple, list)) else (seed,)
         self.draws = draws
@@ -208,7 +265,7 @@ class OnlineKVCluster:
         self._k_star = 0
         self.model: GeekModel | None = None
         self.mass = self.v_cent = self.v_radius = None
-        self.v_max = 0.0
+        self._v_max: torch.Tensor | None = None    # on the device
         self.overflow = 0          # the last fit's SILK overflow
         self.pending = 0           # rows absorbed by EMA since the last fit
         self.refreshes = 0
@@ -218,21 +275,19 @@ class OnlineKVCluster:
         """Discovered number of live clusters (0 before ``start``)."""
         return self._k_star if self.model is not None else 0
 
+    @property
+    def v_max(self) -> float:
+        """The largest value norm seen (the error bound's v_max), kept on
+        the device and read from it only here (0.0 before ``start``)."""
+        return 0.0 if self._v_max is None else float(self._v_max)
+
     def _fit(self, keys, values) -> None:
         """(Re)fit GEEK on the full key set; derive the value side."""
         self._fits += 1
-        bucketer = None if self.draws is None else self.draws(self._fits)
-        est = GEEK(self.gcfg, bucketer=bucketer, device=self.device)
-        gen = torch.Generator(device=self.device).manual_seed(
-            fit_seed(*self.seed, self._fits))
-        keys = torch.as_tensor(keys, device=self.device).to(torch.float32)
-        self.model = est.fit(DenseData(keys), gen)
+        (self.model, self.overflow, self.mass, self.v_cent, self.v_radius,
+         self._v_max) = _fit_head(self.gcfg, self.seed, self._fits,
+                                  self.draws, self.device, keys, values)
         self._k_star = int(self.model.k_star)
-        self.overflow = int(est.result_.overflow)
-        values = torch.as_tensor(values, device=self.device).to(torch.float32)
-        self.mass, self.v_cent, self.v_radius = _value_stats(
-            est.result_.labels, values, self.model.center_valid)
-        self.v_max = float(torch.linalg.norm(values, dim=-1).max())
         self.pending = 0
 
     def start(self, keys, values) -> None:
@@ -256,8 +311,8 @@ class OnlineKVCluster:
             self.v_radius, keys, values, labels, ema=self.ema)
         self.model = update_centers(self.model, centers, radius=radius)
         if keys.shape[0]:
-            self.v_max = max(self.v_max, float(
-                torch.linalg.norm(values, dim=-1).max()))
+            torch.maximum(self._v_max, torch.linalg.norm(values, dim=-1).max(),
+                          out=self._v_max)
         self.pending += int(keys.shape[0])
         return labels
 
@@ -288,11 +343,153 @@ class OnlineKVCluster:
         (DESIGN.md §14).
         """
         live = self.model.center_valid & (self.mass > 0)
-        r_k = float(torch.max(torch.where(live, self.model.radius, 0.0)))
-        r_v = float(torch.max(torch.where(live, self.v_radius, 0.0)))
-        hd = self.model.centers.shape[1]
-        eps = q_norm * r_k / math.sqrt(hd)
-        return r_v + (math.exp(2.0 * eps) - 1.0) * self.v_max
+        return _error_bound(live, self.model.radius, self.v_radius,
+                            self._v_max, self.model.centers.shape[1], q_norm)
+
+
+class LayerKVCluster:
+    """Online KV clustering of one attention layer: its kv heads' states
+    stacked on the device, allocated once per run.
+
+    The state, head h in row h: ``centers`` and ``v_cent`` (H, k_max, hd)
+    float32; ``radius``, ``v_radius`` and ``mass`` (H, k_max) float32;
+    ``center_valid`` (H, k_max) bool; ``v_max`` (H,) float32. Each head
+    fits exactly as an ``OnlineKVCluster`` with seed ``(*seed, h)`` does
+    (the same generator seeds, the same ``draws(h, fit)`` hook, the same
+    k* and overflow), and a fit or refresh writes its result into the
+    head's row in place, so the tensors' storage never moves and a CUDA
+    graph that reads them stays valid. ``update`` routes every head's new
+    keys in one head-batched launch of the L2 kernel and runs one EMA
+    over all heads: each head's labels and state keep the bits of
+    ``OnlineKVCluster.update`` on that head. No per-head ``GeekModel`` is
+    kept up to date; ``head_model(h)`` rebuilds one from row h.
+
+    Parameters
+    ----------
+    num_heads, head_dim : int
+    gcfg, ema, probes, device
+        As for ``OnlineKVCluster``.
+    seed : int or tuple of ints
+        Head h's fit number f draws from ``fit_seed(*seed, h, f)``.
+    draws : callable or None
+        ``draws(h, f)`` returns the bucketer of head h's fit number f.
+    """
+
+    def __init__(self, num_heads: int, head_dim: int,
+                 gcfg: GeekConfig | None = None, *, ema: float = 0.1,
+                 probes: int | None = None, seed=0, draws=None, device=None):
+        self.gcfg = default_kv_config() if gcfg is None else gcfg
+        _check_knobs(ema, probes)
+        self.ema = float(ema)
+        self.seed = tuple(seed) if isinstance(seed, (tuple, list)) else (seed,)
+        self.draws = draws
+        self.device = resolve_device(device)
+        H, K = int(num_heads), self.gcfg.k_max
+        f32 = dict(dtype=torch.float32, device=self.device)
+        self.centers = torch.zeros((H, K, head_dim), **f32)
+        self.v_cent = torch.zeros((H, K, head_dim), **f32)
+        self.radius = torch.zeros((H, K), **f32)
+        self.v_radius = torch.zeros((H, K), **f32)
+        self.mass = torch.zeros((H, K), **f32)
+        self.center_valid = torch.zeros((H, K), dtype=torch.bool,
+                                        device=self.device)
+        self.v_max = torch.zeros((H,), **f32)
+        self._offsets = torch.arange(H, device=self.device)[:, None] * K
+        self._models: list[GeekModel | None] = [None] * H
+        self._fits = [0] * H
+        self.k_stars = [0] * H      # per head, after its last fit
+        self.overflows = [0] * H    # per head, its last fit's SILK overflow
+        self.refreshes = [0] * H
+        self.pending = 0            # rows each head absorbed since its fit
+
+    @property
+    def num_heads(self) -> int:
+        return self.centers.shape[0]
+
+    def _fit_row(self, h: int, keys, values) -> None:
+        """Fit head h on its (n, hd) keys/values; write row h in place."""
+        self._fits[h] += 1
+        draws = None if self.draws is None else functools.partial(
+            self.draws, h)
+        model, overflow, mass, v_cent, v_radius, v_max = _fit_head(
+            self.gcfg, (*self.seed, h), self._fits[h], draws, self.device,
+            keys, values)
+        for dst, src in ((self.centers, model.centers),
+                         (self.radius, model.radius),
+                         (self.center_valid, model.center_valid),
+                         (self.mass, mass), (self.v_cent, v_cent),
+                         (self.v_radius, v_radius), (self.v_max, v_max)):
+            dst[h].copy_(src)
+        self._models[h] = model
+        self.k_stars[h] = int(model.k_star)
+        self.overflows[h] = overflow
+
+    def start(self, keys, values) -> None:
+        """Initial fits on the prefill's keys/values (n, H, hd), the cache
+        layout: head h fits on ``keys[:, h]``."""
+        for h in range(self.num_heads):
+            self._fit_row(h, keys[:, h], values[:, h])
+        self.pending = 0
+
+    def absorb(self, keys: torch.Tensor, values: torch.Tensor
+               ) -> torch.Tensor:
+        """Route (H, n, hd) keys/values, every head against its own
+        centroids in one launch, and EMA-drift the hit clusters of all
+        heads in one pass, in place. Device work only: nothing is read on
+        the host, so a CUDA graph can hold it (``update`` also counts the
+        rows). Returns (H, n) int32 labels."""
+        H, n, d = keys.shape
+        K = self.centers.shape[1]
+        keys = keys.to(torch.float32)
+        values = values.to(torch.float32)
+        csq = torch.sum(self.centers * self.centers, dim=-1)
+        labels, _ = kops.distance_argmin_l2_heads(keys, self.centers, csq,
+                                                  self.center_valid)
+        flat = (labels.to(torch.int64) + self._offsets).reshape(-1)
+        new = _ema(self.centers.view(H * K, d), self.radius.view(-1),
+                   self.mass.view(-1), self.v_cent.view(H * K, d),
+                   self.v_radius.view(-1), keys.reshape(H * n, d),
+                   values.reshape(H * n, d), flat, ema=self.ema, rows=n)
+        for dst, src in zip((self.centers, self.radius, self.mass,
+                             self.v_cent, self.v_radius), new):
+            dst.copy_(src.view(dst.shape))
+        if n:
+            torch.maximum(self.v_max,
+                          torch.linalg.norm(values, dim=-1).amax(dim=1),
+                          out=self.v_max)
+        return labels
+
+    def update(self, keys: torch.Tensor, values: torch.Tensor
+               ) -> torch.Tensor:
+        """``absorb`` a batch, (H, n, hd), and count its rows; returns
+        (H, n) int32 labels."""
+        labels = self.absorb(keys, values)
+        self.pending += int(keys.shape[1])
+        return labels
+
+    def refresh(self, keys, values) -> bool:
+        """Re-fit every head on the full cached keys/values (n, H, hd),
+        writing the rows in place. With zero rows absorbed since the last
+        fit this is a no-op and returns ``False``."""
+        if self.pending == 0:
+            return False
+        for h in range(self.num_heads):
+            self.refreshes[h] += 1
+            self._fit_row(h, keys[:, h], values[:, h])
+        self.pending = 0
+        return True
+
+    def head_model(self, h: int) -> GeekModel:
+        """Head h's ``GeekModel`` as its row stands (centers and radius
+        copied from the stacked state)."""
+        return update_centers(self._models[h], self.centers[h].clone(),
+                              radius=self.radius[h].clone())
+
+    def error_bound(self, h: int, q_norm: float) -> float:
+        """``OnlineKVCluster.error_bound`` of head h (one device read)."""
+        live = self.center_valid[h] & (self.mass[h] > 0)
+        return _error_bound(live, self.radius[h], self.v_radius[h],
+                            self.v_max[h], self.centers.shape[2], q_norm)
 
 
 def stack_heads(heads) -> KVState:
@@ -340,30 +537,62 @@ def clustered_attention(q: torch.Tensor, state: KVState, *,
     return o.transpose(1, 2).to(q.dtype)
 
 
-def make_clustered_step(cfg, *, use_flash: bool = False):
-    """The clustered decode step for an ArchConfig.
+def make_layer_step(cfg, layers: dict):
+    """The clustered decode step over ``LayerKVCluster`` states.
 
-    ``step(params, caches, cache_len, tokens, states)`` is
-    ``models.model.decode_step`` with every attention layer's softmax over
-    the cache replaced by ``clustered_attention`` over ``states[layer]``
-    (a ``{global_layer: KVState}`` dict). The fresh K/V are still written
-    into the raw cache (refreshes need them) and ride into the softmax as
-    the exact extra rows.
+    ``step(params, caches, position, tokens) -> logits (B, V)`` with
+    ``position`` a one-element integer tensor on the device (the row the
+    step writes and its position) and ``tokens`` (B, 1). Each attention
+    layer writes its fresh K/V into the raw cache at ``position``
+    (refreshes read them), attends through ``ops.flash_centroid_decode``
+    over ``layers[layer]``'s state in place with the fresh rows as the
+    exact extra rows, then absorbs them (route + EMA). Nothing is read on
+    the host: a CUDA graph of the step replays at any position.
     """
-    def step(params, caches, cache_len, tokens, states):
-        """One clustered decode step -> (logits (B, V), caches)."""
+    def step(params, caches, position, tokens):
         def override(layer, p, h, *, positions, cache, cache_len):
             q, k, v = L.attn_qkv(p, h, cfg, positions=positions)
             L.cache_write(cache, k, v, cache_len)
-            o = clustered_attention(q, states[layer], extra_k=k, extra_v=v,
-                                    use_flash=use_flash)
+            lay = layers[layer]
+            o = kops.flash_centroid_decode(q, lay.centers, lay.v_cent,
+                                           lay.mass, lay.center_valid,
+                                           extra_k=k, extra_v=v)
+            lay.absorb(k[0].transpose(0, 1), v[0].transpose(0, 1))
             B, S = h.shape[:2]
             return o.reshape(B, S, -1).to(h.dtype) @ p["wo"], cache
 
-        return MODEL.decode_step(params, cfg, caches, cache_len, tokens,
-                                 override)
+        logits, _ = MODEL.decode_step(params, cfg, caches, position, tokens,
+                                      override)
+        return logits
 
     return step
+
+
+class _Replay:
+    """A CUDA graph of one call of ``fn``, captured after one eager call on
+    a side stream (which does that call's work), then replayed. Capture
+    works or raises; the launch counters (``ops.launch_counts``) count at
+    each replay the kernels the capture recorded, and nothing for the
+    capture itself, which launches none."""
+
+    def __init__(self, fn):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            self.first = fn()
+        torch.cuda.current_stream().wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        before = kops.launch_counts()
+        with torch.cuda.graph(self.graph):
+            self.out = fn()
+        self.launches = {k: n - before[k]
+                         for k, n in kops.launch_counts().items()}
+        kops.add_launch_counts(self.launches, -1)
+
+    def __call__(self):
+        self.graph.replay()
+        kops.add_launch_counts(self.launches)
+        return self.out
 
 
 def _sync(device: torch.device) -> float:
@@ -377,16 +606,21 @@ def clustered_decode(params, cfg, tokens, prompt_len: int, *,
                      mode: str = "clustered", gcfg: GeekConfig | None = None,
                      ema: float = 0.1, refresh_every: int = 32,
                      probes: int | None = None, use_flash: bool = False,
-                     seed: int = 0, draws=None, device=None) -> dict:
+                     seed: int = 0, draws=None, device=None,
+                     cuda_graph: bool = True) -> dict:
     """Teacher-forced decode with (or without) online KV clustering.
 
     Prefills ``tokens[:, :prompt_len]`` with exact attention (the flash
-    kernel on the card), fits one ``OnlineKVCluster`` per (attention
-    layer, kv head) on the prefill cache, then decodes the remaining
-    positions one step at a time: clustered attention over the per-layer
-    ``KVState`` snapshots, routing + EMA updates after every step, a
-    re-fit on the full cache every ``refresh_every`` steps.
-    ``mode="exact"`` runs the same harness through ``decode_step``.
+    kernel on the card), fits one ``LayerKVCluster`` per attention layer
+    (every kv head on its own) on the prefill cache, then decodes the
+    remaining positions one step at a time (``make_layer_step``):
+    clustered attention over each layer's state, then routing + EMA of
+    the step's rows, a re-fit on the full cache every ``refresh_every``
+    steps. On the card the clustered step is captured once as a CUDA graph
+    (at the first step, which runs eagerly) and replayed; a refresh writes
+    into the same storage, so the graph stays valid. ``mode="exact"`` runs
+    the same harness through ``decode_step``. Log-probabilities stay on
+    the device until the end.
 
     Parameters
     ----------
@@ -404,16 +638,21 @@ def clustered_decode(params, cfg, tokens, prompt_len: int, *,
         ``draws(layer, h, fit_number)`` returns a bucketer holding that
         fit's arrays (``OnlineKVCluster``'s hook).
     device : None, "cuda" or "cpu"; ``None`` means ``cuda``.
+    cuda_graph : bool
+        On the card, replay the clustered step as a CUDA graph (``False``
+        runs it eagerly there too, for comparison). The CPU runs it
+        eagerly either way.
 
     Returns
     -------
     dict
         ``ppl``/``nll`` over the decoded span, ``steps``, ``seconds``
         (synchronized host-clock times: ``prefill``, ``fits``, ``steps``
-        one per decode step, ``refresh``), and for clustered mode
-        ``mean_k_star``, ``compression`` (final cache length / mean k*),
-        ``refreshes``, ``k_stars`` and ``overflows`` (per head, layer by
-        layer, after the last fit).
+        one per decode step, the first with the graph's capture,
+        ``refresh``), and for clustered mode ``mean_k_star``,
+        ``compression`` (final cache length / mean k*), ``refreshes``,
+        ``k_stars`` and ``overflows`` (per head, layer by layer, after the
+        last fit).
     """
     dev = resolve_device(device)
     pdev = params["head"]["w"].device
@@ -441,59 +680,63 @@ def clustered_decode(params, cfg, tokens, prompt_len: int, *,
     t1 = _sync(dev)
     seconds["prefill"] = t1 - t0
 
-    clusterers: dict[int, list[OnlineKVCluster]] = {}
+    layers: dict[int, LayerKVCluster] = {}
     if mode == "clustered":
         for lyr in attn_layers:
-            heads = []
-            for h in range(cfg.num_kv_heads):
-                cl = OnlineKVCluster(
-                    gcfg, ema=ema, probes=probes, seed=(seed, lyr, h),
-                    device=dev,
-                    draws=None if draws is None else functools.partial(
-                        draws, lyr, h))
-                cl.start(caches[lyr]["k"][0, :prompt_len, h],
-                         caches[lyr]["v"][0, :prompt_len, h])
-                heads.append(cl)
-            clusterers[lyr] = heads
-        step_fn = make_clustered_step(cfg, use_flash=use_flash)
+            layers[lyr] = LayerKVCluster(
+                cfg.num_kv_heads, cfg.resolved_head_dim, gcfg, ema=ema,
+                probes=probes, seed=(seed, lyr), device=dev,
+                draws=None if draws is None else functools.partial(draws,
+                                                                   lyr))
+            layers[lyr].start(caches[lyr]["k"][0, :prompt_len],
+                              caches[lyr]["v"][0, :prompt_len])
+        step = make_layer_step(cfg, layers)
         t1 = _sync(dev)
         seconds["fits"] = t1 - t0 - seconds["prefill"]
 
-    logp = []
-    toks_host = tokens[0].tolist()
-    for t in range(prompt_len, total):
+    # the step's inputs live on the device, filled before each step
+    position = torch.zeros((1,), dtype=torch.int64, device=dev)
+    token = torch.zeros((1, 1), dtype=tokens.dtype, device=dev)
+    replay = None
+    logp = torch.empty((total - prompt_len,), dtype=torch.float32, device=dev)
+    for i, t in enumerate(range(prompt_len, total)):
         ts = _sync(dev)
-        logp.append(float(torch.log_softmax(logits[0], dim=-1)[toks_host[t]]))
-        if mode == "clustered":
-            states = {lyr: stack_heads(clusterers[lyr])
-                      for lyr in attn_layers}
-            logits, caches = step_fn(params, caches, t, tokens[:, t:t + 1],
-                                     states)
-            for lyr in attn_layers:
-                for h, cl in enumerate(clusterers[lyr]):
-                    cl.update(caches[lyr]["k"][0, t, h][None],
-                              caches[lyr]["v"][0, t, h][None])
+        with torch.profiler.record_function(STEP_SPAN):
+            logp[i:i + 1] = torch.log_softmax(logits[0], dim=-1).index_select(
+                0, tokens[0, t:t + 1])
+            if mode == "exact":
+                logits, caches = MODEL.decode_step(params, cfg, caches, t,
+                                                   tokens[:, t:t + 1])
+            else:
+                position.fill_(t)
+                token.copy_(tokens[:, t:t + 1])
+                if replay is not None:
+                    logits = replay()
+                elif dev.type == "cuda" and cuda_graph:
+                    replay = _Replay(lambda: step(params, caches, position,
+                                                  token))
+                    logits = replay.first
+                else:
+                    logits = step(params, caches, position, token)
+                for lay in layers.values():
+                    lay.pending += 1
             te = _sync(dev)
-            seconds["steps"].append(te - ts)
-            if (t - prompt_len + 1) % refresh_every == 0 and t + 1 < total:
-                for lyr in attn_layers:
-                    for h, cl in enumerate(clusterers[lyr]):
-                        cl.refresh(caches[lyr]["k"][0, :t + 1, h],
-                                   caches[lyr]["v"][0, :t + 1, h])
-                seconds["refresh"] += _sync(dev) - te
-        else:
-            logits, caches = MODEL.decode_step(params, cfg, caches, t,
-                                               tokens[:, t:t + 1])
-            seconds["steps"].append(_sync(dev) - ts)
+        seconds["steps"].append(te - ts)
+        if mode == "clustered" and (i + 1) % refresh_every == 0 \
+                and t + 1 < total:
+            for lyr, lay in layers.items():
+                lay.refresh(caches[lyr]["k"][0, :t + 1],
+                            caches[lyr]["v"][0, :t + 1])
+            seconds["refresh"] += _sync(dev) - te
 
-    nll = -sum(logp) / len(logp)
+    nll = -sum(logp.tolist()) / len(logp)
     out = {"mode": mode, "nll": nll, "ppl": math.exp(nll),
            "steps": len(logp), "seconds": seconds}
     if mode == "clustered":
-        heads = [cl for lyr in attn_layers for cl in clusterers[lyr]]
-        out["k_stars"] = [cl.k_star for cl in heads]
-        out["overflows"] = [cl.overflow for cl in heads]
-        out["mean_k_star"] = sum(out["k_stars"]) / len(heads)
+        lays = [layers[lyr] for lyr in attn_layers]
+        out["k_stars"] = [k for lay in lays for k in lay.k_stars]
+        out["overflows"] = [o for lay in lays for o in lay.overflows]
+        out["mean_k_star"] = sum(out["k_stars"]) / len(out["k_stars"])
         out["compression"] = total / max(out["mean_k_star"], 1.0)
-        out["refreshes"] = sum(cl.refreshes for cl in heads)
+        out["refreshes"] = sum(sum(lay.refreshes) for lay in lays)
     return out

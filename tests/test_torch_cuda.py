@@ -580,3 +580,124 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return [_to(v, device) for v in tree]
+
+
+# ---------------------------------------------------------------------------
+# the clustered decode step: head-batched route, decode routine, CUDA graph
+# ---------------------------------------------------------------------------
+
+# (heads, n, k, d): the decode step's (8 kv heads, one row, k_max 64, dh
+# 64), dead tiles among 1,024 centers, ragged tiles, unresident d
+HEADS_SHAPES = [(8, 1, 64, 64), (3, 300, 70, 24), (2, 130, 1024, 128),
+                (2, 50, 70, 960)]
+
+
+@pytest.mark.parametrize("H,n,k,d", HEADS_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_l2_heads_kernel_bit_identical_to_per_head_launches(cuda_device, H, n,
+                                                            k, d, dtype):
+    """One head-batched launch gives each head the labels and d² of one
+    launch on that head, bit for bit: ties to the first index within each
+    head (a duplicated center), a head with no valid center, dead tiles."""
+    gen = torch.Generator(device=cuda_device).manual_seed(H * n + k + d)
+    x = torch.randn((H, n, d), generator=gen, device=cuda_device).to(dtype)
+    c = torch.randn((H, k, d), generator=gen, device=cuda_device).to(dtype)
+    c[:, 9] = c[:, 3]
+    x[:, 0] = c[:, 3]
+    valid = torch.rand((H, k), generator=gen, device=cuda_device) < 0.7
+    valid[:, [3, 9]] = True
+    if k > 128:
+        valid[:, 64:128] = False                    # a dead 64-center tile
+    valid[-1] = False
+    cf = c.float()
+    csq = torch.sum(cf * cf, dim=-1)
+    before = (tda.distance_argmin_l2_heads.launches,
+              tda.distance_argmin_l2.launches)
+    labels, d2 = tda.distance_argmin_l2_heads(x, c, csq, valid)
+    for h in range(H):
+        lab, dd = tda.distance_argmin_l2(x[h], c[h], valid[h])
+        assert torch.equal(labels[h], lab), h
+        assert torch.equal(d2[h], dd), h
+    assert (tda.distance_argmin_l2_heads.launches,
+            tda.distance_argmin_l2.launches) == (before[0] + 1,
+                                                 before[1] + H)
+    assert int(labels[0, 0]) == 3
+    assert not bool(labels[-1].any())
+    assert bool((d2[-1] == torch.finfo(torch.float32).max).all())
+
+
+# (B, Hq, Hkv, K, dh): the main path's (k_max 64), k_max + 1 = 129 rows of
+# dh 128, a group of one and of four, two batch rows, a second pass of rows
+DECODE_SWEEP = [(1, 16, 8, 64, 64), (1, 4, 4, 128, 128), (2, 8, 2, 33, 32),
+                (1, 6, 2, 300, 16)]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,K,dh", DECODE_SWEEP)
+@pytest.mark.parametrize("case", ["dead", "all_dead", "no_extra"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_centroid_decode_kernel_matches_plain(cuda_device, B, Hq, Hkv, K, dh,
+                                              case, dtype):
+    """The decode routine against its plain version: the state read in
+    place, centroids dead by validity or by zero mass, all dead (with the
+    fresh row: its value; without: the mean of the value centroids),
+    queries and fresh rows in the layer layout (strided views)."""
+    from repro_torch.kernels import flash_attention as tfa
+    gen = torch.Generator(device=cuda_device).manual_seed(K * dh + B)
+    c, vc = (torch.randn((Hkv, K, dh), generator=gen, device=cuda_device)
+             for _ in range(2))
+    mass = torch.randint(0, 4, (Hkv, K), generator=gen,
+                         device=cuda_device).float()
+    valid = torch.rand((Hkv, K), generator=gen, device=cuda_device) < 0.8
+    if case == "all_dead":
+        valid[:] = False
+    qkv = torch.randn((B, 1, Hq + 2 * Hkv, dh), generator=gen,
+                      device=cuda_device).to(dtype)
+    q, ek, ev = qkv[:, :, :Hq], qkv[:, :, Hq:Hq + Hkv], qkv[:, :, Hq + Hkv:]
+    extras = {} if case == "no_extra" else {"extra_k": ek, "extra_v": ev}
+    route = tfa.CENTROID_ROUTINES["decode"]
+    before = (tfa.flash_centroid_attention.launches,
+              tfa.flash_centroid_attention.by_routine[route])
+    got = tfa.flash_centroid_decode(q, c, vc, mass, valid, **extras)
+    assert (tfa.flash_centroid_attention.launches,
+            tfa.flash_centroid_attention.by_routine[route]) == (
+                before[0] + 1, before[1] + 1)
+    assert got.dtype == dtype and got.shape == (B, 1, Hq, dh)
+    want = tref.centroid_decode_ref(q, c, vc, mass, valid, **extras)
+    _fa_close(got, want, dtype)
+    if case == "all_dead":
+        mean = ev if extras else vc.mean(1)[None, None].expand(B, 1, Hkv,
+                                                                dh)
+        _fa_close(got, mean.repeat_interleave(Hq // Hkv, 2).to(dtype), dtype)
+
+
+def test_clustered_decode_graph_replay_equals_eager_step(cuda_device):
+    """A 2-layer smoke LM decoded on the card with the clustered step
+    captured as a CUDA graph and replayed, against the same run with the
+    step eager: the same perplexity, k* and refreshes; the decode routine
+    counted once a layer a step in both (replays counted)."""
+    import dataclasses
+
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.serve import kv_cluster as tkv
+    cfg = dataclasses.replace(rt.get_arch("qwen3_0_6b", smoke=True),
+                              num_layers=2)
+    params = rt.init_params(cfg, 0, device=cuda_device)
+    tok = torch.randint(0, cfg.vocab_size, (1, 100),
+                        generator=torch.Generator().manual_seed(3))
+    route = tfa.CENTROID_ROUTINES["decode"]
+    runs = {}
+    for graph in (True, False):
+        before = (tfa.flash_centroid_attention.by_routine[route],
+                  tda.distance_argmin_l2_heads.launches)
+        runs[graph] = tkv.clustered_decode(
+            params, cfg, tok, 80, gcfg=tkv.default_kv_config(16),
+            refresh_every=8, cuda_graph=graph)
+        assert (tfa.flash_centroid_attention.by_routine[route] - before[0],
+                tda.distance_argmin_l2_heads.launches - before[1]) == (
+                    cfg.num_layers * 20, cfg.num_layers * 20)
+    replayed, eager = runs[True], runs[False]
+    assert replayed["k_stars"] == eager["k_stars"]
+    assert replayed["refreshes"] == eager["refreshes"] == \
+        2 * cfg.num_kv_heads * cfg.num_layers
+    assert replayed["ppl"] == eager["ppl"]
+    assert len(replayed["seconds"]["steps"]) == 20

@@ -7,22 +7,26 @@
 
 Runs ``chip_smoke.py``'s phase-11 path: the architecture at full width
 with weights drawn from seed 0, one sequence of random tokens, the
-prefill, one ``OnlineKVCluster`` fit per (layer, kv head), the decode
-steps with routing and EMA updates, and a refresh every
-``--refresh-every`` steps. A short decode warms up (kernel builds, library
-handles). Then three runs:
+prefill, one ``LayerKVCluster`` per layer (a fit per kv head), the decode
+steps (clustered attention on the decode routine, then the head-batched
+route and one EMA per layer), and a refresh every ``--refresh-every``
+steps. A short decode warms up (kernel builds, library handles). Then
+four runs:
 
-1. un-instrumented: ``clustered_decode``'s own synchronized stage clock
-   (prefill, initial fits, decode steps, refresh) and its wall time;
-2. instrumented: each stage wrapped by a synchronized host clock, nested
-   stages inside their parents: the prefill's attention (the
-   flash-attention kernel), the fits, and per decode step
-   ``stack_heads``, the clustered attention (the centroid-attention kernel
-   and its inputs' concatenation), the rest of the model step, and each
-   head's ``update`` split into ``route`` (the L2 kernel) and the
-   EMA (``ema_update`` + ``update_centers``);
-3. under ``torch.profiler`` (card only), a few decode steps: the device's
-   busy share of the wall time and the device time by kernel.
+1. un-instrumented, the step replayed from its CUDA graph (the default):
+   ``clustered_decode``'s own synchronized stage clock (prefill, initial
+   fits, decode steps, refresh) and its wall time;
+2. the same with the step eager (``cuda_graph=False``): what the graph
+   saves;
+3. instrumented, eager (a graph replay calls no Python): each stage
+   wrapped by a synchronized host clock, nested stages inside their
+   parents: the prefill's attention (the flash-attention kernel), the
+   fits, and per decode step the model step, the centroid attention (the
+   decode routine), and each layer's ``absorb`` split into the route (the
+   head-batched L2 kernel) and the EMA;
+4. under ``torch.profiler`` (card only), a few decode steps replayed: the
+   device's busy share of the whole run and of the decode steps alone
+   (the first, which captures, left out), and the device time by kernel.
 
 ``--device cpu`` rehearses the script on the architecture's smoke config
 (``--prompt 128 --decode 40 --k-max 16`` unless given); its times are the
@@ -72,14 +76,14 @@ def timed_stages(dev):
         patched.append((owner, name, fn))
 
     wrap(L, "cache_attention", "cache attention (prefill: flash_attention)")
-    wrap(kv.OnlineKVCluster, "_fit", "GEEK fits (start and refresh)")
-    wrap(kv, "stack_heads", "stack_heads")
-    wrap(kv, "clustered_attention", "clustered attention (flash_centroid_attention)")
-    wrap(kv.OnlineKVCluster, "update", "update (route + EMA + v_max)")
-    wrap(kv.OnlineKVCluster, "route", "- route (predict: L2 kernel)")
-    wrap(kv, "ema_update", "- ema_update")
-    wrap(kv, "update_centers", "- update_centers")
-    wrap(M, "decode_step", "model step (with clustered attention)")
+    wrap(kv, "_fit_head", "GEEK fits (start and refresh), per head")
+    wrap(M, "decode_step", "model step (with clustered attention, absorb)")
+    wrap(kv.kops, "flash_centroid_decode",
+         "- centroid attention (decode routine)")
+    wrap(kv.LayerKVCluster, "absorb", "- absorb, per layer: route + EMA")
+    wrap(kv.kops, "distance_argmin_l2_heads",
+         "-- route (head-batched L2 kernel)")
+    wrap(kv, "_ema", "-- EMA, all heads of the layer")
 
     def undo():
         for owner, name, fn in reversed(patched):
@@ -113,36 +117,42 @@ def main():
     tokens = torch.randint(0, cfg.vocab_size, (1, prompt + decode),
                            generator=gen, device=dev)
 
-    def run(n_decode):
+    def run(n_decode, graph=True):
         return kv.clustered_decode(params, cfg, tokens[:, :prompt + n_decode],
                                    prompt, gcfg=gcfg,
                                    refresh_every=args.refresh_every,
-                                   device=dev)
+                                   device=dev, cuda_graph=graph)
 
     run(2)                                              # warm-up
-    sync(dev)
-    t0 = time.perf_counter()
-    out = run(decode)
-    wall = time.perf_counter() - t0
-    sec = out["seconds"]
-    steps = sum(sec["steps"])
     name = torch.cuda.get_device_name(0) if full else "cpu"
     print(f"device {dev} {name}; {cfg.name}: {cfg.num_layers} layers x "
           f"{cfg.num_kv_heads} kv heads, prompt {prompt}, {decode} decoded, "
           f"k_max {k_max}, refresh every {args.refresh_every}")
-    print(f"un-instrumented: wall {wall:.3f} s; ppl {out['ppl']:.4f}, mean "
-          f"k* {out['mean_k_star']:.2f}, compression {out['compression']:.2f}, "
-          f"refreshes {out['refreshes']}")
-    for label, s in (("prefill", sec["prefill"]), ("initial fits", sec["fits"]),
-                     (f"{decode} decode steps", steps),
-                     ("refresh", sec["refresh"])):
-        print(f"  {label:40s} {s * 1e3:10.1f} ms  {100 * s / wall:5.1f} %")
-    print(f"  per decode step {steps / decode * 1e3:.2f} ms")
+    for graph in (True, False):
+        sync(dev)
+        t0 = time.perf_counter()
+        out = run(decode, graph)
+        wall = time.perf_counter() - t0
+        sec = out["seconds"]
+        steps = sum(sec["steps"])
+        how = "replayed" if graph and full else "eager"
+        print(f"un-instrumented, step {how}: "
+              f"wall {wall:.3f} s; ppl {out['ppl']:.6f}, mean k* "
+              f"{out['mean_k_star']:.2f}, compression "
+              f"{out['compression']:.2f}, refreshes {out['refreshes']}")
+        for label, s in (("prefill", sec["prefill"]),
+                         ("initial fits", sec["fits"]),
+                         (f"{decode} decode steps", steps),
+                         ("refresh", sec["refresh"])):
+            print(f"  {label:40s} {s * 1e3:10.1f} ms  {100 * s / wall:5.1f} %")
+        print(f"  per decode step {steps / decode * 1e3:.3f} ms (the first "
+              f"{sec['steps'][0] * 1e3:.2f} ms"
+              f"{', with the capture' if graph and full else ''})")
 
     totals, calls, undo = timed_stages(dev)
     try:
         t0 = time.perf_counter()
-        run(decode)
+        run(decode, graph=False)
         sync(dev)
         wall_i = time.perf_counter() - t0
     finally:
@@ -163,8 +173,11 @@ def main():
         sync(dev)
         wall_p = time.perf_counter() - t0
     cuda = torch.autograd.DeviceType.CUDA
+    # device intervals; the step's range on the device's timeline (its
+    # annotation) is not device work
     spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == cuda)
+                   for e in prof.events()
+                   if e.device_type == cuda and e.name != kv.STEP_SPAN)
     busy, reach = 0.0, float("-inf")        # union of device intervals, us
     for start, end in spans:
         busy += max(0.0, end - max(start, reach))
@@ -174,6 +187,28 @@ def main():
           f"{wall_p * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms "
           f"({100 * busy / wall_p:.1f} %), idle "
           f"{100 * (1 - busy / wall_p):.1f} %")
+    steps = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.name == kv.STEP_SPAN and e.device_type != cuda)[1:]
+    work = sorted((e.time_range.start, e.time_range.end, e.name)
+                  for e in prof.events()
+                  if e.device_type == cuda and e.name != kv.STEP_SPAN)
+    in_steps, names = 0.0, collections.Counter()
+    for s0, s1 in steps:
+        reach = s0
+        for start, end, key in work:
+            if s0 <= start < s1:
+                in_steps += max(0.0, end - max(start, reach))
+                reach = max(reach, end)
+                names[key] += 1
+    wall_s = sum(s1 - s0 for s0, s1 in steps)
+    if wall_s:
+        print(f"  decode steps 2-{n}: wall {wall_s / 1e3:.3f} ms, device "
+              f"busy {in_steps / 1e3:.3f} ms ({100 * in_steps / wall_s:.1f} "
+              f"%), {sum(names.values()) / len(steps):.0f} device events a "
+              f"step; the most frequent, a step:")
+        for key, count in names.most_common(12):
+            print(f"  {count / len(steps):9.1f}x  {key[:90]}")
     rows = sorted(((e.self_device_time_total, e.count, e.key)
                    for e in prof.key_averages() if e.device_type == cuda),
                   reverse=True)
