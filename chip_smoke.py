@@ -147,9 +147,6 @@ KV_LOGIT_RTOL = 0.1
 KV_FAULTS = ("non-causal", "next kv head")
 # layers whose clustered attention is held to the error bound
 KV_BOUND_LAYERS = (0, 13, 27)
-# the clustered run replayed from a CUDA graph against the same run with the
-# step eager, relative perplexity: the same kernels on the same inputs
-KV_GRAPH_RTOL = 1e-4
 # decode steps of the profiled runs that measure the device's busy share
 KV_BUSY_STEPS = 16
 # the decode routine's sweep beside the main path's shape: (B, Hq, Hkv, K,
@@ -363,36 +360,40 @@ def sass_counts(lib, function, opcodes):
 def reset_launches(*kernels):
     for k in kernels:
         k.launches = 0
-        for routine in getattr(k, "by_routine", {}):
-            k.by_routine[routine] = 0
 
 
-def busy_per_range(prof, span, skip=0):
-    """(device busy ms, device events, wall ms) per host range named
+def busy_per_range(prof, span, skip=0, names=()):
+    """(device busy ms, device events, wall ms, named) per host range named
     ``span`` in a ``torch.profiler`` trace, the first ``skip`` ranges left
     out: the union of the device intervals (kernels, copies, fills) that
-    start inside a range, and the range's wall time under the profiler.
-    The range's own annotation on the device's timeline is not device
-    work."""
+    start inside a range, the range's wall time under the profiler, and
+    for each of ``names`` the list, range by range, of the device events
+    whose name contains it. The range's own annotation on the device's
+    timeline is not device work."""
     import bisect
     events = prof.events()
     spans = sorted((e.time_range.start, e.time_range.end) for e in events
                    if e.name == span and "CUDA" not in str(e.device_type))
     spans = spans[skip:]
-    dev = sorted((e.time_range.start, e.time_range.end) for e in events
+    dev = sorted((e.time_range.start, e.time_range.end, e.name)
+                 for e in events
                  if "CUDA" in str(e.device_type) and e.name != span)
-    starts = [k0 for k0, _ in dev]
+    starts = [k0 for k0, _, _ in dev]
     busy, seen = 0.0, 0
+    named = {name: [] for name in names}
     for s0, s1 in spans:
         reach = s0
-        for k0, k1 in dev[bisect.bisect_left(starts, s0):
-                          bisect.bisect_left(starts, s1)]:
+        inside = dev[bisect.bisect_left(starts, s0):
+                     bisect.bisect_left(starts, s1)]
+        for k0, k1, _ in inside:
             busy += max(0.0, k1 - max(k0, reach))
             reach = max(reach, k1)
             seen += 1
+        for name, counts in named.items():
+            counts.append(sum(name in e for _, _, e in inside))
     n = max(len(spans), 1)
     return (busy / n / 1e3, seen / n,
-            sum(s1 - s0 for s0, s1 in spans) / n / 1e3)
+            sum(s1 - s0 for s0, s1 in spans) / n / 1e3, named)
 
 
 def ham_exact(kernel_out, plain_out, what):
@@ -635,10 +636,12 @@ def decode_kernels(dev, cfg, k_stars):
         x, c, csq, valid), 50)
     heads_lib_ms = cuda_ms(lambda: torch.bmm(x, c.transpose(1, 2)), 500)
     live = int(ks.sum())
-    # x, centers, ||c||^2 and validity read once, labels and d² written;
-    # 2·d flops per (row, valid center) at the float32 rate
+    # the bytes the function needs: x, the valid centers' rows and their
+    # ||c||^2 read once (float32), a validity flag a center (a byte),
+    # labels and d² written; 2·d flops per (row, valid center) at the
+    # float32 rate
     heads_bound, heads_by = bound(
-        4.0 * (H * hd + H * K * hd + 2 * H * K + 2 * H),
+        4.0 * (H * hd + live * hd + live + 2 * H) + H * K,
         [2.0 * live * hd / PEAK_F32_FLOPS])
     print(f"  distance_argmin_l2_heads at ({H}, 1, {K}, {hd}), {live} valid "
           f"centers: bit-identical to {H} launches, one a head; vs plain "
@@ -703,12 +706,15 @@ def decode_kernels(dev, cfg, k_stars):
         qf, cc, vv, attn_mask=mask, enable_gqa=True), 500)
     sdpa_dev = device_ms(lambda: F.scaled_dot_product_attention(
         qf, cc, vv, attn_mask=mask, enable_gqa=True), 50)
-    # the rows the data needs (live centroids and the fresh rows, keys and
-    # values), mass and validity of every row, queries read once, output
-    # written; 4·dh flops per (query head, row) at the float32 rate
+    # the bytes the function needs: the live centroids' keys and values
+    # and their mass (float32), a validity flag a centroid (a byte), the
+    # fresh rows' keys and values and the queries at their element size,
+    # the output written; 4·dh flops per (query head, row) at the float32
+    # rate, the live rows and the fresh ones
     rows_live = live + H
     dec_bound, dec_by = bound(
-        2 * 4.0 * rows_live * hd + 5.0 * H * K + 2.0 * 2 * Hq * hd,
+        4.0 * (2 * live * hd + live) + H * K
+        + ek.element_size() * 2 * H * hd + 2 * q.element_size() * Hq * hd,
         [4.0 * (Hq // H) * rows_live * hd / PEAK_F32_FLOPS])
     print(f"  flash_centroid_decode at (1, {Hq}, {H}, {K} + 1, {hd}), bf16 "
           f"queries, {live} live rows: kernel {dec_ms:.4f} ms (device time "
@@ -765,7 +771,7 @@ def kv_path(rt, dev, gen, all_kernels):
     clustered step's kernels (``decode_kernels``); the error bound at one
     decode step of a few layers through the per-head API. Returns the
     launches of the phase-10 kernels (the prefill's, and the per-head
-    path's tiles routine) and the rows of the step's kernels."""
+    path's (B, S) kernel) and the rows of the step's kernels."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     from repro_torch.models import layers as L
@@ -774,6 +780,7 @@ def kv_path(rt, dev, gen, all_kernels):
     from repro_torch.serve import kv_cluster as kv
     from repro_torch.kernels import distance_argmin as da
     kernels = all_kernels + (fa.flash_attention, fa.flash_centroid_attention,
+                             fa.flash_centroid_decode,
                              da.distance_argmin_l2_heads)
     cfg = rt.get_arch(KV_ARCH)
     phase(f"11 KV-cache serving path: {cfg.name} ({cfg.num_layers} layers, "
@@ -847,8 +854,7 @@ def kv_path(rt, dev, gen, all_kernels):
         decode_calls[0] += 1
         return real_decode(*args, **kwargs)
 
-    route = fa.CENTROID_ROUTINES["decode"]
-    runs, launches, routines, calls = {}, {}, {}, {}
+    runs, launches, calls = {}, {}, {}
     kv.kops.flash_centroid_decode = counted_decode
     try:
         for run in ("exact", "clustered", "clustered, eager"):
@@ -867,7 +873,6 @@ def kv_path(rt, dev, gen, all_kernels):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches[run] = {k.__name__: k.launches for k in kernels}
-            routines[run] = dict(fa.flash_centroid_attention.by_routine)
             calls[run] = decode_calls[0]
             runs[run] = out
             sec = out["seconds"]
@@ -904,13 +909,14 @@ def kv_path(rt, dev, gen, all_kernels):
             lc["flash_attention"] != cfg.num_layers:
         raise AssertionError("flash_attention did not launch once a layer per "
                              "prefill")
-    # one centroid attention a layer a step, on the decode routine, graph
-    # replays counted; one head-batched route a layer a step
-    if lc["flash_centroid_attention"] != per_run or \
-            routines["clustered"][route] != per_run or \
+    # one centroid attention a layer a step, all of it the decode kernel
+    # (which flash_centroid_attention's count counts too), graph replays
+    # counted; one head-batched route a layer a step
+    if lc["flash_centroid_decode"] != per_run or \
+            lc["flash_centroid_attention"] != per_run or \
             lx["flash_centroid_attention"] != 0:
-        raise AssertionError("flash_centroid_attention did not launch once a "
-                             "layer per step")
+        raise AssertionError("the decode kernel did not launch once a layer "
+                             "per step")
     if lc["distance_argmin_l2_heads"] != per_run or \
             launches["clustered, eager"]["distance_argmin_l2_heads"] != per_run:
         raise AssertionError("the head-batched route did not launch once a "
@@ -922,8 +928,8 @@ def kv_path(rt, dev, gen, all_kernels):
             calls["clustered, eager"] != per_run:
         raise AssertionError(f"the clustered step was not replayed from its "
                              f"graph: {calls}")
-    graph_rel = abs(clus["ppl"] - eager["ppl"]) / eager["ppl"]
-    if clus["k_stars"] != eager["k_stars"] or not graph_rel <= KV_GRAPH_RTOL:
+    # the same kernels on the same inputs: the same bits
+    if clus["k_stars"] != eager["k_stars"] or clus["ppl"] != eager["ppl"]:
         raise AssertionError(f"graph replay differs from the eager step: ppl "
                              f"{clus['ppl']} vs {eager['ppl']}")
     sx, sc, se = (np.array(r["seconds"]["steps"]) * 1e3
@@ -933,15 +939,17 @@ def kv_path(rt, dev, gen, all_kernels):
           f"{np.median(sx):.3f}; clustered, eager {se.mean():.3f} / "
           f"{np.median(se):.3f}. Clustered / exact: {sc.mean() / sx.mean():.3f}"
           f" ({'below' if sc.mean() < sx.mean() else 'NOT below'} the exact "
-          f"step). Graph vs eager: ppl relative {graph_rel:.3g} (tolerance "
-          f"{KV_GRAPH_RTOL}), k* equal")
+          f"step). Graph vs eager: ppl and k* equal")
 
     # the device's busy share of the decode steps: the device time of a
     # step's kernels, from profiled runs of KV_BUSY_STEPS steps (no refresh,
     # the first step, which captures, left out), over the mean step of the
     # runs above (steps 2-64); tracing slows the steps themselves, so the
-    # share under the profiler is printed beside it
+    # share under the profiler is printed beside it. In the clustered
+    # steps the trace counts the slice's two kernels: one of each a layer a
+    # step, the replays' launches seen on the device
     from torch.profiler import ProfilerActivity, profile
+    step_kernels = ("flash_centroid_decode_kernel", "l2_argmin_heads_kernel")
     for mode, steps in (("clustered", sc), ("exact", sx)):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -951,15 +959,24 @@ def kv_path(rt, dev, gen, all_kernels):
                                 gcfg=kv.default_kv_config(KV_KMAX),
                                 ema=KV_EMA, refresh_every=KV_REFRESH,
                                 device=dev)
-        busy, events, traced = busy_per_range(prof, kv.STEP_SPAN, skip=1)
+        busy, events, traced, named = busy_per_range(
+            prof, kv.STEP_SPAN, skip=1, names=step_kernels)
         print(f"  {mode} decode step, device: {busy:.3f} ms of kernels and "
               f"copies, {events:.0f} device events (torch.profiler, steps "
               f"2-{KV_BUSY_STEPS}); busy share {busy / steps[1:].mean():.1%}"
               f" of the untraced mean step {steps[1:].mean():.3f} ms "
               f"({busy / traced:.1%} of the traced step, {traced:.3f} ms)")
+        want = cfg.num_layers if mode == "clustered" else 0
+        for name, counts in named.items():
+            if len(counts) != KV_BUSY_STEPS - 1 or set(counts) != {want}:
+                raise AssertionError(f"{mode}: {name} ran {counts} times in "
+                                     f"the traced steps, not {want} a step")
+        print(f"    traced on the device, a step: "
+              f"{', '.join(f'{n} {c[0]}' for n, c in named.items())} "
+              f"(in each of the {KV_BUSY_STEPS - 1} steps)")
     rows = decode_kernels(dev, cfg, clus["k_stars"][:cfg.num_kv_heads])
     rows[0]["launches"] = lc["distance_argmin_l2_heads"]
-    rows[1]["launches"] = routines["clustered"][route]
+    rows[1]["launches"] = lc["flash_centroid_decode"]
 
     # the first decode step of a few layers: each kv head fitted on its
     # prefill keys, the step's real queries and fresh K/V. The clustered
@@ -980,9 +997,10 @@ def kv_path(rt, dev, gen, all_kernels):
     M.decode_step(params, cfg, caches, KV_PROMPT,
                   tokens[:, KV_PROMPT:KV_PROMPT + 1], attn_override=capture)
     worst, plain_err, g = 0.0, 0.0, cfg.num_heads // cfg.num_kv_heads
+    ulps, differ, elems = 0, 0, 0
     # the per-head API's path: OnlineKVCluster, stack_heads and
-    # clustered_attention on the tiles routine; its launches counted alone
-    reset_launches(fa.flash_centroid_attention)
+    # clustered_attention on the (B, S) kernel; its launches counted alone
+    reset_launches(fa.flash_centroid_attention, fa.flash_centroid_decode)
     for layer in KV_BOUND_LAYERS:
         keys = caches[layer]["k"][0, :KV_PROMPT].float()
         vals = caches[layer]["v"][0, :KV_PROMPT].float()
@@ -1015,6 +1033,21 @@ def kv_path(rt, dev, gen, all_kernels):
                                  f"{got_x.dtype}, not {q_step.dtype}")
         plain_err = max(plain_err, fa_check(got_x, want_x,
                                             f"layer {layer}, step"))
+        # the same step through the decode kernel on the same state: the
+        # two kernels sum in different orders, so their bf16 outputs may
+        # differ in the last place (a witness, not a check)
+        state_rows = [torch.stack([getattr(cl.layer, name)[0]
+                                   for cl in heads_])
+                      for name in ("centers", "v_cent", "mass",
+                                   "center_valid")]
+        got_d = fa.flash_centroid_decode(q_step, *state_rows, extra_k=k_step,
+                                         extra_v=v_step)
+        plain_err = max(plain_err, fa_check(got_d, want_x,
+                                            f"layer {layer}, decode kernel"))
+        bits_x, bits_d = (t.view(torch.int16).int() for t in (got_x, got_d))
+        differ += int((bits_x != bits_d).sum())
+        elems += got_x.numel()
+        ulps = max(ulps, int((bits_x - bits_d).abs().max()))
         for qh in range(cfg.num_heads):
             h = qh // g
             s = (keys[:, h].double() @ q[0, 0, qh].double()) \
@@ -1026,17 +1059,20 @@ def kv_path(rt, dev, gen, all_kernels):
                 raise AssertionError(f"layer {layer} head {qh}: error {err} "
                                      f"above the bound {bnd}")
             worst = max(worst, err / bnd)
-    tiles = fa.flash_centroid_attention.by_routine[fa.CENTROID_ROUTINES[
-        "tiles"]]
+    tiles = fa.flash_centroid_attention.launches \
+        - fa.flash_centroid_decode.launches
     if tiles != 2 * len(KV_BOUND_LAYERS):
-        raise AssertionError(f"the per-head path launched the tiles routine "
+        raise AssertionError(f"the per-head path launched the (B, S) kernel "
                              f"{tiles} times")
     print(f"  first decode step at layers {KV_BOUND_LAYERS}, all "
           f"{cfg.num_heads} heads, per-head API (OnlineKVCluster, "
-          f"stack_heads, clustered_attention: {tiles} launches of the tiles "
-          f"routine): clustered attention vs plain max |Δ| "
-          f"{plain_err:.3g} (float32 and the step's {cfg.dtype} with its "
-          f"fresh row); error bound held, largest error / bound {worst:.3g}")
+          f"stack_heads, clustered_attention: {tiles} launches of the (B, S) "
+          f"kernel): clustered attention vs plain max |Δ| "
+          f"{plain_err:.3g} (float32, and the step's {cfg.dtype} with its "
+          f"fresh row through both kernels); error bound held, largest error"
+          f" / bound {worst:.3g}. The step's {cfg.dtype} output, decode "
+          f"kernel vs (B, S) kernel: {differ} of {elems} elements differ, by "
+          f"at most {ulps} ulp")
     return {"flash_attention": lc["flash_attention"],
             "flash_centroid_attention": tiles}, rows
 

@@ -15,13 +15,12 @@ flash kernel through an augmented ``dh + 1`` lane; here ``log_mass`` is a
 bias added after the product, in the same tile routine.
 
 ``flash_centroid_decode`` is the same function for the decode step alone
-(S = 1), a second routine of ``flash_centroid_attention``: it reads one
-layer's stacked clustered state in place (centroids, value centroids,
-mass and validity) and the step's fresh K/V row through two more
-pointers with log-mass 0, computing the log-mass from the mass inside the
-kernel, so the step builds no snapshot and concatenates nothing. One block
-per kv head serves its group of query heads. Its plain version is
-``ref.centroid_decode_ref``.
+(S = 1), a kernel of its own: it reads one layer's stacked clustered
+state in place (centroids, value centroids, mass and validity) and the
+step's fresh K/V row through two more pointers with log-mass 0, computing
+the log-mass from the mass inside the kernel, so the step builds no
+snapshot and concatenates nothing. One block per kv head serves its group
+of query heads. Its plain version is ``ref.centroid_decode_ref``.
 
 Bound on this card: the prefill's attention is bound by operations (8.6
 GFLOP causal against 12.6 MB at Qwen3-0.6B's S = 2,048), the decode
@@ -59,10 +58,6 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the routine ``flash_attention`` launches for each element type
 ROUTINES = {torch.bfloat16: "bf16 tensor cores (mma.sync, cp.async)",
             torch.float32: "float32 CUDA cores (FMA)"}
-#: the routines of ``flash_centroid_attention``'s function, by entry
-CENTROID_ROUTINES = {"tiles": "(B, S) query tiles (flash_centroid_kernel)",
-                     "decode": "decode step, layer state in place "
-                               "(flash_centroid_decode_kernel)"}
 MAX_DH = 128
 #: the decode routine's shared memory limit (Hopper: 227 KiB a block)
 _MAX_SMEM = 227 * 1024
@@ -155,9 +150,8 @@ def flash_centroid_attention(q: torch.Tensor, centers: torch.Tensor,
     (B, Hq, S, dh) over centers and v_cent (B, Hkv, K, dh), log_mass
     (B, Hkv, K) (``-1e30`` = dead; all dead gives the mean of v_cent).
     Returns (B, Hq, S, dh) in q's dtype. Counts one launch in
-    ``flash_centroid_attention.launches``, which counts the launches of
-    both routines of the function (``flash_centroid_decode``'s too), and
-    one in ``flash_centroid_attention.by_routine`` under this routine."""
+    ``flash_centroid_attention.launches`` (which ``flash_centroid_decode``
+    ticks too)."""
     (qc, cc, vc), dt = _prepare(q, (centers, v_cent),
                                 "flash_centroid_attention")
     B, Hq, S, dh = qc.shape
@@ -182,13 +176,10 @@ def flash_centroid_attention(q: torch.Tensor, centers: torch.Tensor,
         _device_index(q.device), torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_centroid_attention")
     flash_centroid_attention.launches += 1
-    flash_centroid_attention.by_routine[CENTROID_ROUTINES["tiles"]] += 1
     return out.to(q.dtype)
 
 
 flash_centroid_attention.launches = 0
-flash_centroid_attention.by_routine = dict.fromkeys(CENTROID_ROUTINES.values(),
-                                                    0)
 
 
 def _decode_smem_bytes(group: int, rows: int, dh: int) -> int:
@@ -209,8 +200,9 @@ def flash_centroid_decode(q: torch.Tensor, centers: torch.Tensor,
     log(max(mass, 1e-9)) where valid and mass > 0, else -1e30; plus, when
     given, the fresh rows extra_k, extra_v (B, 1, Hkv, dh) with log-mass 0.
     Returns (B, 1, Hq, dh) in q's dtype. Counts one launch in
-    ``flash_centroid_attention.launches`` and in its ``by_routine`` under
-    this routine."""
+    ``flash_centroid_decode.launches`` and one in
+    ``flash_centroid_attention.launches``, which counts both kernels of
+    the function."""
     what = "flash_centroid_decode"
     dev = q.device
     if dev.type != "cuda":
@@ -266,6 +258,9 @@ def flash_centroid_decode(q: torch.Tensor, centers: torch.Tensor,
         dims, strides, 1.0 / math.sqrt(dh), _device_index(dev),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, what)
+    flash_centroid_decode.launches += 1
     flash_centroid_attention.launches += 1
-    flash_centroid_attention.by_routine[CENTROID_ROUTINES["decode"]] += 1
     return out.to(q.dtype)
+
+
+flash_centroid_decode.launches = 0

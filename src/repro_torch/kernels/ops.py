@@ -111,33 +111,9 @@ def flash_centroid_decode(q, centers, v_cent, mass, center_valid,
                                      extra_k, extra_v)
 
 
-#: every wrapper that counts its launches
+#: every wrapper that counts its launches (``fn.launches``)
 COUNTED = (_da.distance_argmin_l2, _da.distance_argmin_l2_heads,
            _da.distance_argmin_l2_accumulate, _dh.distance_argmin_hamming,
            _dh.distance_argmin_hamming_packed, _mh.minhash_segments,
-           _fa.flash_attention, _fa.flash_centroid_attention)
-
-
-def launch_counts() -> dict:
-    """Every launch counter: ``{(wrapper, routine or None): count}``."""
-    out = {}
-    for fn in COUNTED:
-        out[(fn.__name__, None)] = fn.launches
-        for routine, n in getattr(fn, "by_routine", {}).items():
-            out[(fn.__name__, routine)] = n
-    return out
-
-
-def add_launch_counts(counts: dict, times: int = 1) -> None:
-    """Add ``times`` × ``counts`` (keys as ``launch_counts`` gives them) to
-    the counters. A captured CUDA graph launches, at each replay, the
-    kernels its capture counted, and launched none at the capture: the
-    decode loop takes the capture's counts back once and adds them at
-    every replay."""
-    by_name = {fn.__name__: fn for fn in COUNTED}
-    for (name, routine), n in counts.items():
-        fn = by_name[name]
-        if routine is None:
-            fn.launches += times * n
-        else:
-            fn.by_routine[routine] += times * n
+           _fa.flash_attention, _fa.flash_centroid_attention,
+           _fa.flash_centroid_decode)

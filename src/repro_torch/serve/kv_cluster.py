@@ -6,7 +6,8 @@ the k* SILK-discovered key centroids of each (layer, kv head), each
 weighted by its cluster mass:
 
 - **Routing.** Every new key is assigned to a centroid by the model's
-  ``predict`` (the L2 assignment kernel on the card).
+  exact ``predict`` rule (on the card, one head-batched launch of the L2
+  assignment kernel for all heads of a layer).
 - **Streaming center updates.** Each routed key drifts its centroid by an
   exponential moving average (``ema_update``; clusters that receive no
   row come back bit for bit); every ``refresh_every`` steps a full GEEK
@@ -14,19 +15,21 @@ weighted by its cluster mass:
 - **Clustered attention.** ``softmax(q·c/√d + log mass) @ v_centroids``
   is per-key attention with every key/value moved to its centroid, so
   the error obeys the closed-form bound of ``error_bound``. On the card
-  it is the hand-written ``flash_centroid_attention`` kernel.
+  the decode step runs the hand-written ``flash_centroid_decode`` kernel
+  over the layer's state in place; ``clustered_attention`` (any (B, S))
+  runs ``flash_centroid_attention``.
 
 The in-flight token's own K/V rides along unclustered (log-mass 0), so
 the newest position is always exact; it joins a cluster via ``update``
 right after the step.
 
-``OnlineKVCluster`` is the per-head API. ``clustered_decode`` keeps each
-attention layer's heads as one ``LayerKVCluster``: stacked device tensors
-allocated once, fitted head by head as ``OnlineKVCluster`` fits and
-written in place, routed in one head-batched launch and EMA-updated in
-one pass for all heads. Its decode step reads nothing on the host, so on
-the card it is captured once as a CUDA graph and replayed (the reference
-jits its step); on the CPU the same step runs eagerly.
+``LayerKVCluster`` holds one attention layer's heads as stacked device
+tensors allocated once, fitted head by head and written in place, routed
+in one head-batched launch and EMA-updated in one pass for all heads.
+``OnlineKVCluster``, the per-head API, is a view of a one-head layer.
+``clustered_decode``'s step reads nothing on the host, so on the card it
+is captured once as a CUDA graph and replayed (the reference jits its
+step); on the CPU the same step runs eagerly.
 
 Differences from the reference. Each fit draws from a ``torch.Generator``
 seeded from ``(seed, layer, kv head, fit number)``; ``draws`` hands a fit
@@ -49,7 +52,7 @@ import torch
 from repro_torch.core.api import GEEK, DenseData
 from repro_torch.core.assign import segment_sum_rows
 from repro_torch.core.geek import GeekConfig
-from repro_torch.core.model import GeekModel, predict, update_centers
+from repro_torch.core.model import GeekModel, update_centers
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 from repro_torch.models import model as MODEL
@@ -196,157 +199,6 @@ def _check_knobs(ema: float, probes) -> None:
                                   "index (ROADMAP.md, Queue 1 item 9)")
 
 
-def _fit_head(gcfg: GeekConfig, seed: tuple, fit: int, draws, device,
-              keys, values):
-    """Fit number ``fit`` of one head: a GEEK fit of its (n, hd) keys from
-    a generator seeded with ``fit_seed(*seed, fit)`` (or ``draws(fit)``'s
-    arrays), then the value side. Returns (model, overflow, mass, v_cent,
-    v_radius, v_max), v_max a float32 0-d tensor on the device."""
-    bucketer = None if draws is None else draws(fit)
-    est = GEEK(gcfg, bucketer=bucketer, device=device)
-    gen = torch.Generator(device=device).manual_seed(fit_seed(*seed, fit))
-    keys = torch.as_tensor(keys, device=device).to(torch.float32)
-    model = est.fit(DenseData(keys), gen)
-    values = torch.as_tensor(values, device=device).to(torch.float32)
-    mass, v_cent, v_radius = _value_stats(est.result_.labels, values,
-                                          model.center_valid)
-    v_max = torch.linalg.norm(values, dim=-1).max()
-    return model, int(est.result_.overflow), mass, v_cent, v_radius, v_max
-
-
-def _error_bound(live, radius, v_radius, v_max, hd: int,
-                 q_norm: float) -> float:
-    """``r_v + (e^{2ε} − 1)·v_max`` with ``ε = q_norm · r_k / √hd``, the
-    radii's maxima over the ``live`` clusters: one read of the device."""
-    r_k, r_v, v_max = torch.stack([
-        torch.max(torch.where(live, radius, 0.0)),
-        torch.max(torch.where(live, v_radius, 0.0)),
-        v_max]).tolist()
-    eps = q_norm * r_k / math.sqrt(hd)
-    return r_v + (math.exp(2.0 * eps) - 1.0) * v_max
-
-
-class OnlineKVCluster:
-    """Streaming GEEK clustering of one attention head's KV stream.
-
-    Owns a ``GeekModel`` over the head's post-RoPE keys plus the value side
-    (per-cluster mass, value centroid, value radius). ``start`` fits on the
-    prefill, ``update`` routes and EMA-drifts per decode step, ``refresh``
-    re-fits on the full cache. The raw cache stays with the caller.
-
-    Parameters
-    ----------
-    gcfg : GeekConfig or None
-        ``default_kv_config()`` when None.
-    ema : float in (0, 1]
-    probes
-        Probed routing needs the center index: ``probes`` other than None
-        raises ``NotImplementedError``.
-    seed : int or tuple of ints
-        Fit number f draws from a generator seeded with
-        ``fit_seed(*seed, f)``.
-    draws : callable or None
-        ``draws(f)`` returns the bucketer for fit number f (1 for
-        ``start``), which supplies that fit's arrays in place of the
-        generator's (``core.api.LSHBucketer.split_key``).
-    device : None, "cuda" or "cpu"
-        ``None`` means ``cuda`` and raises without a card.
-    """
-
-    def __init__(self, gcfg: GeekConfig | None = None, *, ema: float = 0.1,
-                 probes: int | None = None, seed=0, draws=None, device=None):
-        self.gcfg = default_kv_config() if gcfg is None else gcfg
-        _check_knobs(ema, probes)
-        self.ema = float(ema)
-        self.seed = tuple(seed) if isinstance(seed, (tuple, list)) else (seed,)
-        self.draws = draws
-        self.device = resolve_device(device)
-        self._fits = 0
-        self._k_star = 0
-        self.model: GeekModel | None = None
-        self.mass = self.v_cent = self.v_radius = None
-        self._v_max: torch.Tensor | None = None    # on the device
-        self.overflow = 0          # the last fit's SILK overflow
-        self.pending = 0           # rows absorbed by EMA since the last fit
-        self.refreshes = 0
-
-    @property
-    def k_star(self) -> int:
-        """Discovered number of live clusters (0 before ``start``)."""
-        return self._k_star if self.model is not None else 0
-
-    @property
-    def v_max(self) -> float:
-        """The largest value norm seen (the error bound's v_max), kept on
-        the device and read from it only here (0.0 before ``start``)."""
-        return 0.0 if self._v_max is None else float(self._v_max)
-
-    def _fit(self, keys, values) -> None:
-        """(Re)fit GEEK on the full key set; derive the value side."""
-        self._fits += 1
-        (self.model, self.overflow, self.mass, self.v_cent, self.v_radius,
-         self._v_max) = _fit_head(self.gcfg, self.seed, self._fits,
-                                  self.draws, self.device, keys, values)
-        self._k_star = int(self.model.k_star)
-        self.pending = 0
-
-    def start(self, keys, values) -> None:
-        """Initial fit on the prefill's (n, hd) keys/values."""
-        self._fit(keys, values)
-
-    def route(self, keys) -> torch.Tensor:
-        """Assign (n, hd) keys to centroids with the model's exact
-        ``predict``; returns (n,) int32 labels."""
-        labels, _ = predict(self.model, torch.as_tensor(
-            keys, device=self.device).to(torch.float32))
-        return labels
-
-    def update(self, keys, values) -> torch.Tensor:
-        """Route a batch and EMA-drift the hit centroids; returns labels."""
-        keys = torch.as_tensor(keys, device=self.device).to(torch.float32)
-        values = torch.as_tensor(values, device=self.device).to(torch.float32)
-        labels = self.route(keys)
-        centers, radius, self.mass, self.v_cent, self.v_radius = ema_update(
-            self.model.centers, self.model.radius, self.mass, self.v_cent,
-            self.v_radius, keys, values, labels, ema=self.ema)
-        self.model = update_centers(self.model, centers, radius=radius)
-        if keys.shape[0]:
-            torch.maximum(self._v_max, torch.linalg.norm(values, dim=-1).max(),
-                          out=self._v_max)
-        self.pending += int(keys.shape[0])
-        return labels
-
-    def refresh(self, keys, values) -> bool:
-        """Re-fit on the full cached (n, hd) keys/values, re-discovering k*.
-        With zero rows absorbed since the last fit this is a no-op: returns
-        ``False`` and touches no state."""
-        if self.pending == 0:
-            return False
-        self.refreshes += 1
-        self._fit(keys, values)
-        return True
-
-    def head_state(self) -> KVState:
-        """This head's (K, hd) attention-facing snapshot (no head axis)."""
-        live = self.model.center_valid & (self.mass > 0)
-        log_mass = torch.where(live, torch.log(torch.clamp(self.mass,
-                                                           min=1e-9)), _NEG)
-        return KVState(self.model.centers.to(torch.float32), self.v_cent,
-                       log_mass.to(torch.float32))
-
-    def error_bound(self, q_norm: float) -> float:
-        """Closed-form bound on the clustered-attention output error.
-
-        For any query with ``‖q‖ ≤ q_norm``, the L2 distance between exact
-        per-key attention and this head's clustered attention is at most
-        ``r_v + (e^{2ε} − 1)·v_max`` with ``ε = q_norm · r_k / √hd``
-        (DESIGN.md §14).
-        """
-        live = self.model.center_valid & (self.mass > 0)
-        return _error_bound(live, self.model.radius, self.v_radius,
-                            self._v_max, self.model.centers.shape[1], q_norm)
-
-
 class LayerKVCluster:
     """Online KV clustering of one attention layer: its kv heads' states
     stacked on the device, allocated once per run.
@@ -354,37 +206,50 @@ class LayerKVCluster:
     The state, head h in row h: ``centers`` and ``v_cent`` (H, k_max, hd)
     float32; ``radius``, ``v_radius`` and ``mass`` (H, k_max) float32;
     ``center_valid`` (H, k_max) bool; ``v_max`` (H,) float32. Each head
-    fits exactly as an ``OnlineKVCluster`` with seed ``(*seed, h)`` does
-    (the same generator seeds, the same ``draws(h, fit)`` hook, the same
-    k* and overflow), and a fit or refresh writes its result into the
-    head's row in place, so the tensors' storage never moves and a CUDA
-    graph that reads them stays valid. ``update`` routes every head's new
-    keys in one head-batched launch of the L2 kernel and runs one EMA
-    over all heads: each head's labels and state keep the bits of
-    ``OnlineKVCluster.update`` on that head. No per-head ``GeekModel`` is
+    is its own GEEK fit, from its own generator seed, and a fit or refresh
+    writes its result into the head's row in place, so the tensors'
+    storage never moves and a CUDA graph that reads them stays valid.
+    ``update`` routes every head's new keys in one head-batched launch of
+    the L2 kernel and runs one EMA over all heads, flattened to (H·k_max,
+    …): every per-cluster quantity is independent of the others, so each
+    head gets the bits of a one-head layer. No per-head ``GeekModel`` is
     kept up to date; ``head_model(h)`` rebuilds one from row h.
 
     Parameters
     ----------
     num_heads, head_dim : int
-    gcfg, ema, probes, device
-        As for ``OnlineKVCluster``.
-    seed : int or tuple of ints
-        Head h's fit number f draws from ``fit_seed(*seed, h, f)``.
+    gcfg : GeekConfig or None
+        ``default_kv_config()`` when None.
+    ema : float in (0, 1]
+    probes
+        Probed routing needs the center index: ``probes`` other than None
+        raises ``NotImplementedError``.
+    seeds : sequence of int tuples, one per head, or None
+        Head h's fit number f draws from a generator seeded with
+        ``fit_seed(*seeds[h], f)``; None gives head h the tuple ``(h,)``.
     draws : callable or None
-        ``draws(h, f)`` returns the bucketer of head h's fit number f.
+        ``draws(h, f)`` returns the bucketer of head h's fit number f (1
+        for ``start``), which supplies that fit's arrays in place of the
+        generator's (``core.api.LSHBucketer.split_key``).
+    device : None, "cuda" or "cpu"
+        ``None`` means ``cuda`` and raises without a card.
     """
 
     def __init__(self, num_heads: int, head_dim: int,
                  gcfg: GeekConfig | None = None, *, ema: float = 0.1,
-                 probes: int | None = None, seed=0, draws=None, device=None):
+                 probes: int | None = None, seeds=None, draws=None,
+                 device=None):
         self.gcfg = default_kv_config() if gcfg is None else gcfg
         _check_knobs(ema, probes)
         self.ema = float(ema)
-        self.seed = tuple(seed) if isinstance(seed, (tuple, list)) else (seed,)
+        H, K = int(num_heads), self.gcfg.k_max
+        self.seeds = [(h,) for h in range(H)] if seeds is None else [
+            tuple(s) for s in seeds]
+        if len(self.seeds) != H:
+            raise ValueError(f"need {H} seeds, one a head, got "
+                             f"{len(self.seeds)}")
         self.draws = draws
         self.device = resolve_device(device)
-        H, K = int(num_heads), self.gcfg.k_max
         f32 = dict(dtype=torch.float32, device=self.device)
         self.centers = torch.zeros((H, K, head_dim), **f32)
         self.v_cent = torch.zeros((H, K, head_dim), **f32)
@@ -407,22 +272,29 @@ class LayerKVCluster:
         return self.centers.shape[0]
 
     def _fit_row(self, h: int, keys, values) -> None:
-        """Fit head h on its (n, hd) keys/values; write row h in place."""
+        """Fit head h on its (n, hd) keys/values (a GEEK fit of the keys,
+        then the value side); write row h in place."""
         self._fits[h] += 1
-        draws = None if self.draws is None else functools.partial(
-            self.draws, h)
-        model, overflow, mass, v_cent, v_radius, v_max = _fit_head(
-            self.gcfg, (*self.seed, h), self._fits[h], draws, self.device,
-            keys, values)
+        bucketer = None if self.draws is None else self.draws(h,
+                                                              self._fits[h])
+        est = GEEK(self.gcfg, bucketer=bucketer, device=self.device)
+        gen = torch.Generator(device=self.device).manual_seed(
+            fit_seed(*self.seeds[h], self._fits[h]))
+        keys = torch.as_tensor(keys, device=self.device).to(torch.float32)
+        model = est.fit(DenseData(keys), gen)
+        values = torch.as_tensor(values, device=self.device).to(torch.float32)
+        mass, v_cent, v_radius = _value_stats(est.result_.labels, values,
+                                              model.center_valid)
         for dst, src in ((self.centers, model.centers),
                          (self.radius, model.radius),
                          (self.center_valid, model.center_valid),
                          (self.mass, mass), (self.v_cent, v_cent),
-                         (self.v_radius, v_radius), (self.v_max, v_max)):
+                         (self.v_radius, v_radius),
+                         (self.v_max, torch.linalg.norm(values, dim=-1).max())):
             dst[h].copy_(src)
         self._models[h] = model
         self.k_stars[h] = int(model.k_star)
-        self.overflows[h] = overflow
+        self.overflows[h] = int(est.result_.overflow)
 
     def start(self, keys, values) -> None:
         """Initial fits on the prefill's keys/values (n, H, hd), the cache
@@ -431,20 +303,28 @@ class LayerKVCluster:
             self._fit_row(h, keys[:, h], values[:, h])
         self.pending = 0
 
+    def route(self, keys: torch.Tensor) -> torch.Tensor:
+        """Assign (H, n, hd) keys, every head against its own centroids, in
+        one launch (``ops.distance_argmin_l2_heads``; ‖c‖² computed once
+        here); returns (H, n) int32 labels, each head's those of the
+        model's exact ``predict``."""
+        csq = torch.sum(self.centers * self.centers, dim=-1)
+        labels, _ = kops.distance_argmin_l2_heads(keys.to(torch.float32),
+                                                  self.centers, csq,
+                                                  self.center_valid)
+        return labels
+
     def absorb(self, keys: torch.Tensor, values: torch.Tensor
                ) -> torch.Tensor:
-        """Route (H, n, hd) keys/values, every head against its own
-        centroids in one launch, and EMA-drift the hit clusters of all
-        heads in one pass, in place. Device work only: nothing is read on
-        the host, so a CUDA graph can hold it (``update`` also counts the
-        rows). Returns (H, n) int32 labels."""
+        """Route (H, n, hd) keys/values and EMA-drift the hit clusters of
+        all heads in one pass, in place. Device work only: nothing is read
+        on the host, so a CUDA graph can hold it (``update`` also counts
+        the rows). Returns (H, n) int32 labels."""
         H, n, d = keys.shape
         K = self.centers.shape[1]
         keys = keys.to(torch.float32)
         values = values.to(torch.float32)
-        csq = torch.sum(self.centers * self.centers, dim=-1)
-        labels, _ = kops.distance_argmin_l2_heads(keys, self.centers, csq,
-                                                  self.center_valid)
+        labels = self.route(keys)
         flat = (labels.to(torch.int64) + self._offsets).reshape(-1)
         new = _ema(self.centers.view(H * K, d), self.radius.view(-1),
                    self.mass.view(-1), self.v_cent.view(H * K, d),
@@ -479,17 +359,148 @@ class LayerKVCluster:
         self.pending = 0
         return True
 
-    def head_model(self, h: int) -> GeekModel:
+    def head_model(self, h: int) -> GeekModel | None:
         """Head h's ``GeekModel`` as its row stands (centers and radius
-        copied from the stacked state)."""
+        copied from the stacked state); None before its first fit."""
+        if self._models[h] is None:
+            return None
         return update_centers(self._models[h], self.centers[h].clone(),
                               radius=self.radius[h].clone())
 
     def error_bound(self, h: int, q_norm: float) -> float:
-        """``OnlineKVCluster.error_bound`` of head h (one device read)."""
+        """Closed-form bound on head h's clustered-attention output error.
+
+        For any query with ``‖q‖ ≤ q_norm``, the L2 distance between exact
+        per-key attention and this head's clustered attention is at most
+        ``r_v + (e^{2ε} − 1)·v_max`` with ``ε = q_norm · r_k / √hd``
+        (DESIGN.md §14). One read of the device.
+        """
         live = self.center_valid[h] & (self.mass[h] > 0)
-        return _error_bound(live, self.radius[h], self.v_radius[h],
-                            self.v_max[h], self.centers.shape[2], q_norm)
+        r_k, r_v, v_max = torch.stack([
+            torch.max(torch.where(live, self.radius[h], 0.0)),
+            torch.max(torch.where(live, self.v_radius[h], 0.0)),
+            self.v_max[h]]).tolist()
+        eps = q_norm * r_k / math.sqrt(self.centers.shape[2])
+        return r_v + (math.exp(2.0 * eps) - 1.0) * v_max
+
+
+class OnlineKVCluster:
+    """Streaming GEEK clustering of one attention head's KV stream: a view
+    of a one-head ``LayerKVCluster``, made at ``start``.
+
+    Owns a ``GeekModel`` over the head's post-RoPE keys plus the value side
+    (per-cluster mass, value centroid, value radius). ``start`` fits on the
+    prefill, ``update`` routes and EMA-drifts per decode step, ``refresh``
+    re-fits on the full cache. The raw cache stays with the caller.
+
+    Parameters
+    ----------
+    gcfg : GeekConfig or None
+        ``default_kv_config()`` when None.
+    ema : float in (0, 1]
+    probes
+        Probed routing needs the center index: ``probes`` other than None
+        raises ``NotImplementedError``.
+    seed : int or tuple of ints
+        Fit number f draws from a generator seeded with
+        ``fit_seed(*seed, f)``.
+    draws : callable or None
+        ``draws(f)`` returns the bucketer for fit number f (1 for
+        ``start``), which supplies that fit's arrays in place of the
+        generator's (``core.api.LSHBucketer.split_key``).
+    device : None, "cuda" or "cpu"
+        ``None`` means ``cuda`` and raises without a card.
+    """
+
+    def __init__(self, gcfg: GeekConfig | None = None, *, ema: float = 0.1,
+                 probes: int | None = None, seed=0, draws=None, device=None):
+        self.gcfg = default_kv_config() if gcfg is None else gcfg
+        _check_knobs(ema, probes)
+        self.ema = float(ema)
+        self.seed = tuple(seed) if isinstance(seed, (tuple, list)) else (seed,)
+        self.draws = draws
+        self.device = resolve_device(device)
+        self.layer: LayerKVCluster | None = None
+
+    def _row(self, name: str):
+        return None if self.layer is None else getattr(self.layer, name)[0]
+
+    @property
+    def k_star(self) -> int:
+        """Discovered number of live clusters (0 before ``start``)."""
+        return 0 if self.layer is None else self.layer.k_stars[0]
+
+    @property
+    def model(self) -> GeekModel | None:
+        """The head's ``GeekModel`` as it stands (None before ``start``)."""
+        return None if self.layer is None else self.layer.head_model(0)
+
+    mass = property(lambda self: self._row("mass"),
+                    doc="(K,) float32 rows per cluster")
+    v_cent = property(lambda self: self._row("v_cent"),
+                      doc="(K, hd) float32 value centroids")
+    v_radius = property(lambda self: self._row("v_radius"),
+                        doc="(K,) float32 value radii")
+    overflow = property(lambda self: 0 if self.layer is None
+                        else self.layer.overflows[0],
+                        doc="the last fit's SILK overflow")
+    pending = property(lambda self: 0 if self.layer is None
+                       else self.layer.pending,
+                       doc="rows absorbed by EMA since the last fit")
+    refreshes = property(lambda self: 0 if self.layer is None
+                         else self.layer.refreshes[0],
+                         doc="refits that ran")
+
+    @property
+    def v_max(self) -> float:
+        """The largest value norm seen (the error bound's v_max), kept on
+        the device and read from it only here (0.0 before ``start``)."""
+        return 0.0 if self.layer is None else float(self.layer.v_max[0])
+
+    def _rows(self, t) -> torch.Tensor:
+        """(n, hd) rows as a float32 tensor on the device."""
+        return torch.as_tensor(t, device=self.device).to(torch.float32)
+
+    def start(self, keys, values) -> None:
+        """Initial fit on the prefill's (n, hd) keys/values."""
+        keys, values = self._rows(keys), self._rows(values)
+        if self.layer is None:
+            draws = None if self.draws is None else (
+                lambda h, fit: self.draws(fit))
+            self.layer = LayerKVCluster(
+                1, keys.shape[-1], self.gcfg, ema=self.ema, seeds=[self.seed],
+                draws=draws, device=self.device)
+        self.layer.start(keys[:, None], values[:, None])
+
+    def route(self, keys) -> torch.Tensor:
+        """Assign (n, hd) keys to centroids with the model's exact
+        ``predict``; returns (n,) int32 labels."""
+        return self.layer.route(self._rows(keys)[None])[0]
+
+    def update(self, keys, values) -> torch.Tensor:
+        """Route a batch and EMA-drift the hit centroids; returns labels."""
+        return self.layer.update(self._rows(keys)[None],
+                                 self._rows(values)[None])[0]
+
+    def refresh(self, keys, values) -> bool:
+        """Re-fit on the full cached (n, hd) keys/values, re-discovering k*.
+        With zero rows absorbed since the last fit this is a no-op: returns
+        ``False`` and touches no state."""
+        return self.pending > 0 and self.layer.refresh(
+            self._rows(keys)[:, None], self._rows(values)[:, None])
+
+    def head_state(self) -> KVState:
+        """This head's (K, hd) attention-facing snapshot (no head axis)."""
+        live = self.layer.center_valid[0] & (self.mass > 0)
+        log_mass = torch.where(live, torch.log(torch.clamp(self.mass,
+                                                           min=1e-9)), _NEG)
+        return KVState(self.layer.centers[0].clone(), self.v_cent.clone(),
+                       log_mass.to(torch.float32))
+
+    def error_bound(self, q_norm: float) -> float:
+        """Closed-form bound on the clustered-attention output error
+        (``LayerKVCluster.error_bound``)."""
+        return self.layer.error_bound(0, q_norm)
 
 
 def stack_heads(heads) -> KVState:
@@ -571,9 +582,9 @@ def make_layer_step(cfg, layers: dict):
 class _Replay:
     """A CUDA graph of one call of ``fn``, captured after one eager call on
     a side stream (which does that call's work), then replayed. Capture
-    works or raises; the launch counters (``ops.launch_counts``) count at
-    each replay the kernels the capture recorded, and nothing for the
-    capture itself, which launches none."""
+    works or raises. The launch counters (``ops.COUNTED``) count at each
+    replay the kernels the capture recorded, and nothing for the capture
+    itself, which launches none."""
 
     def __init__(self, fn):
         side = torch.cuda.Stream()
@@ -582,16 +593,18 @@ class _Replay:
             self.first = fn()
         torch.cuda.current_stream().wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
-        before = kops.launch_counts()
+        before = [fn.launches for fn in kops.COUNTED]
         with torch.cuda.graph(self.graph):
             self.out = fn()
-        self.launches = {k: n - before[k]
-                         for k, n in kops.launch_counts().items()}
-        kops.add_launch_counts(self.launches, -1)
+        self.launches = [(fn, fn.launches - n)
+                         for fn, n in zip(kops.COUNTED, before)]
+        for fn, n in self.launches:
+            fn.launches -= n
 
     def __call__(self):
         self.graph.replay()
-        kops.add_launch_counts(self.launches)
+        for fn, n in self.launches:
+            fn.launches += n
         return self.out
 
 
@@ -631,12 +644,13 @@ def clustered_decode(params, cfg, tokens, prompt_len: int, *,
     prompt_len : int, 0 < prompt_len < total.
     mode : {"clustered", "exact"}
     gcfg, ema, refresh_every, probes, use_flash
-        Clustering knobs (``OnlineKVCluster``); ignored for "exact".
+        Clustering knobs (``LayerKVCluster``); ignored for "exact".
     seed : int
         Head h of layer l fits from ``fit_seed(seed, l, h, fit number)``.
     draws : callable or None
         ``draws(layer, h, fit_number)`` returns a bucketer holding that
-        fit's arrays (``OnlineKVCluster``'s hook).
+        fit's arrays (``LayerKVCluster``'s hook, the layer
+        bound).
     device : None, "cuda" or "cpu"; ``None`` means ``cuda``.
     cuda_graph : bool
         On the card, replay the clustered step as a CUDA graph (``False``
@@ -685,7 +699,8 @@ def clustered_decode(params, cfg, tokens, prompt_len: int, *,
         for lyr in attn_layers:
             layers[lyr] = LayerKVCluster(
                 cfg.num_kv_heads, cfg.resolved_head_dim, gcfg, ema=ema,
-                probes=probes, seed=(seed, lyr), device=dev,
+                probes=probes, device=dev,
+                seeds=[(seed, lyr, h) for h in range(cfg.num_kv_heads)],
                 draws=None if draws is None else functools.partial(draws,
                                                                    lyr))
             layers[lyr].start(caches[lyr]["k"][0, :prompt_len],

@@ -654,13 +654,12 @@ def test_centroid_decode_kernel_matches_plain(cuda_device, B, Hq, Hkv, K, dh,
                       device=cuda_device).to(dtype)
     q, ek, ev = qkv[:, :, :Hq], qkv[:, :, Hq:Hq + Hkv], qkv[:, :, Hq + Hkv:]
     extras = {} if case == "no_extra" else {"extra_k": ek, "extra_v": ev}
-    route = tfa.CENTROID_ROUTINES["decode"]
-    before = (tfa.flash_centroid_attention.launches,
-              tfa.flash_centroid_attention.by_routine[route])
+    before = (tfa.flash_centroid_decode.launches,
+              tfa.flash_centroid_attention.launches)
     got = tfa.flash_centroid_decode(q, c, vc, mass, valid, **extras)
-    assert (tfa.flash_centroid_attention.launches,
-            tfa.flash_centroid_attention.by_routine[route]) == (
-                before[0] + 1, before[1] + 1)
+    assert (tfa.flash_centroid_decode.launches,
+            tfa.flash_centroid_attention.launches) == (before[0] + 1,
+                                                       before[1] + 1)
     assert got.dtype == dtype and got.shape == (B, 1, Hq, dh)
     want = tref.centroid_decode_ref(q, c, vc, mass, valid, **extras)
     _fa_close(got, want, dtype)
@@ -684,15 +683,14 @@ def test_clustered_decode_graph_replay_equals_eager_step(cuda_device):
     params = rt.init_params(cfg, 0, device=cuda_device)
     tok = torch.randint(0, cfg.vocab_size, (1, 100),
                         generator=torch.Generator().manual_seed(3))
-    route = tfa.CENTROID_ROUTINES["decode"]
     runs = {}
     for graph in (True, False):
-        before = (tfa.flash_centroid_attention.by_routine[route],
+        before = (tfa.flash_centroid_decode.launches,
                   tda.distance_argmin_l2_heads.launches)
         runs[graph] = tkv.clustered_decode(
             params, cfg, tok, 80, gcfg=tkv.default_kv_config(16),
             refresh_every=8, cuda_graph=graph)
-        assert (tfa.flash_centroid_attention.by_routine[route] - before[0],
+        assert (tfa.flash_centroid_decode.launches - before[0],
                 tda.distance_argmin_l2_heads.launches - before[1]) == (
                     cfg.num_layers * 20, cfg.num_layers * 20)
     replayed, eager = runs[True], runs[False]

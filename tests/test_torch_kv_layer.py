@@ -2,11 +2,13 @@
 (``repro_torch.serve.kv_cluster.LayerKVCluster``), its head-batched route
 and the decode routine of the centroid attention, on the CPU.
 
-- The layer state against the per-head API it stacks: every head fitted,
-  updated and refreshed as ``OnlineKVCluster`` on that head does it, BIT
-  FOR BIT (labels, centers, radius, mass, value centroids and radii,
-  v_max, k*, overflow), one row a head a step (the decode's, ``index_add_``
-  sums) and several (sorted segment sums);
+- The layer state of H heads against the per-head API (``OnlineKVCluster``,
+  a one-head layer): every head fitted, updated and refreshed as
+  ``OnlineKVCluster`` on that head does it, BIT FOR BIT (labels, centers,
+  radius, mass, value centroids and radii, v_max, k*, overflow), one row a
+  head a step (the decode's, ``index_add_`` sums) and several (sorted
+  segment sums): the head-batched route and the flattened EMA keep each
+  head's bits;
 - the plain head-batched route against a per-head ``predict``, bit for bit,
   ties to the first index;
 - the plain decode routine (``ops.flash_centroid_decode`` on the CPU)
@@ -90,8 +92,8 @@ def test_layer_update_bit_identical_to_per_head(hkv, rows):
     n = 96
     keys, vals = _blobs(rng, n, hkv)
     gcfg = tkv.default_kv_config(K_MAX)
-    layer = tkv.LayerKVCluster(hkv, HD, gcfg, ema=0.2, seed=(7, 3),
-                               device="cpu")
+    layer = tkv.LayerKVCluster(hkv, HD, gcfg, ema=0.2, device="cpu",
+                               seeds=[(7, 3, h) for h in range(hkv)])
     heads = [tkv.OnlineKVCluster(gcfg, ema=0.2, seed=(7, 3, h), device="cpu")
              for h in range(hkv)]
     layer.start(_t(keys), _t(vals))
@@ -149,6 +151,29 @@ def test_layer_refresh_with_nothing_pending_is_a_noop():
         tkv.LayerKVCluster(2, HD, ema=0.0, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tkv.LayerKVCluster(2, HD, probes=2, device="cpu")
+    with pytest.raises(ValueError, match="seeds"):
+        tkv.LayerKVCluster(2, HD, seeds=[(0,)], device="cpu")
+
+
+def test_per_head_view_before_and_after_start():
+    """``OnlineKVCluster`` before ``start``: no model, no state, a refresh
+    is a no-op; after it, a view of row 0 of a one-head layer, whose
+    storage a refresh keeps."""
+    keys, vals = _blobs(np.random.default_rng(5), 64, 1)
+    cl = tkv.OnlineKVCluster(tkv.default_kv_config(K_MAX), seed=(1, 2),
+                             device="cpu")
+    assert cl.model is None and cl.mass is None and cl.layer is None
+    assert (cl.k_star, cl.overflow, cl.pending, cl.refreshes, cl.v_max) == (
+        0, 0, 0, 0, 0.0)
+    assert cl.refresh(keys[:, 0], vals[:, 0]) is False
+    cl.start(keys[:, 0], vals[:, 0])                 # numpy rows
+    assert cl.layer.num_heads == 1 and cl.layer.seeds == [(1, 2)]
+    storage = cl.layer.centers.data_ptr()
+    cl.update(_t(keys[:2, 0]), _t(vals[:2, 0]))
+    assert cl.pending == 2 and cl.refresh(keys[:, 0], vals[:, 0]) is True
+    assert cl.refreshes == 1 and cl.layer.centers.data_ptr() == storage
+    assert torch.equal(cl.model.centers, cl.layer.centers[0])
+    assert cl.v_max == float(cl.layer.v_max[0]) > 0.0
 
 
 @pytest.mark.parametrize("hkv,n,k,d", [(2, 1, 16, 16), (8, 1, 64, 64),

@@ -28,6 +28,13 @@ four runs:
    device's busy share of the whole run and of the decode steps alone
    (the first, which captures, left out), and the device time by kernel.
 
+``--swap-kernels`` runs instead, eagerly, the run of 2 and the same run
+with the step's two kernels swapped for the calls the per-head step made
+before the layer state: the (B, S) centroid-attention kernel over a
+snapshot in place of the decode kernel, one L2 launch a head in place of
+the head-batched one, and both; it prints each run's perplexity and
+mean k*, so that a change of the perplexity can be put down to a kernel.
+
 ``--device cpu`` rehearses the script on the architecture's smoke config
 (``--prompt 128 --decode 40 --k-max 16`` unless given); its times are the
 CPU's and say nothing of the card.
@@ -76,7 +83,8 @@ def timed_stages(dev):
         patched.append((owner, name, fn))
 
     wrap(L, "cache_attention", "cache attention (prefill: flash_attention)")
-    wrap(kv, "_fit_head", "GEEK fits (start and refresh), per head")
+    wrap(kv.LayerKVCluster, "_fit_row",
+         "GEEK fits (start and refresh), per head")
     wrap(M, "decode_step", "model step (with clustered attention, absorb)")
     wrap(kv.kops, "flash_centroid_decode",
          "- centroid attention (decode routine)")
@@ -92,6 +100,37 @@ def timed_stages(dev):
     return totals, calls, undo
 
 
+def swap_kernels(which):
+    """Swap the step's kernels (``which`` holds "attention" and/or
+    "route") for the calls the per-head step made: ``clustered_attention``
+    over a snapshot with ``head_state``'s log-mass (the (B, S) kernel), and
+    one ``distance_argmin_l2`` a head (‖c‖² computed per head in its
+    wrapper). Returns undo."""
+    saved = (kv.kops.flash_centroid_decode, kv.kops.distance_argmin_l2_heads)
+
+    def attention(q, centers, v_cent, mass, valid, extra_k=None,
+                  extra_v=None):
+        live = valid & (mass > 0)
+        lm = torch.where(live, torch.log(torch.clamp(mass, min=1e-9)), -1e30)
+        return kv.clustered_attention(q, kv.KVState(centers, v_cent, lm),
+                                      extra_k=extra_k, extra_v=extra_v)
+
+    def route(x, centers, csq, valid):
+        outs = [kv.kops.distance_argmin_l2(x[h], centers[h], valid[h])
+                for h in range(x.shape[0])]
+        return tuple(torch.stack(parts) for parts in zip(*outs))
+
+    if "attention" in which:
+        kv.kops.flash_centroid_decode = attention
+    if "route" in which:
+        kv.kops.distance_argmin_l2_heads = route
+
+    def undo():
+        kv.kops.flash_centroid_decode, kv.kops.distance_argmin_l2_heads = \
+            saved
+    return undo
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3_0_6b")
@@ -101,6 +140,7 @@ def main():
     ap.add_argument("--refresh-every", type=int, default=32)
     ap.add_argument("--profile-steps", type=int, default=4)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--swap-kernels", action="store_true")
     args = ap.parse_args()
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -128,6 +168,18 @@ def main():
     print(f"device {dev} {name}; {cfg.name}: {cfg.num_layers} layers x "
           f"{cfg.num_kv_heads} kv heads, prompt {prompt}, {decode} decoded, "
           f"k_max {k_max}, refresh every {args.refresh_every}")
+    if args.swap_kernels:
+        for which in ((), ("attention",), ("route",), ("attention", "route")):
+            undo = swap_kernels(which)
+            try:
+                out = run(decode, graph=False)
+            finally:
+                undo()
+            print(f"eager, swapped for the per-head calls: "
+                  f"{', '.join(which) or 'nothing'}: ppl {out['ppl']:.6f}, "
+                  f"mean k* {out['mean_k_star']:.2f}, k* per head "
+                  f"{sum(out['k_stars'])} in all")
+        return 0
     for graph in (True, False):
         sync(dev)
         t0 = time.perf_counter()
