@@ -35,10 +35,11 @@ width (28 layers, d_model 1,024, bf16, weights drawn from a seed) through
 prefill on the flash-attention kernel, 224 per-head GEEK fits, 64 decode
 steps, one refresh at step 32. The clustered step keeps each layer's kv
 heads as one stacked state, attends on the centroid-attention kernel's
-decode routine over it in place, routes every head's new key in one
-head-batched launch of the L2 kernel and updates all heads in one EMA; it
-is captured once as a CUDA graph and replayed (its kernels' launches are
-counted at every replay), and held to the same run with the step eager.
+decode routine over it in place, and routes and EMA-updates every head's
+new key in one launch of the absorb kernel; it is captured once as a
+CUDA graph and replayed (its kernels' launches are counted at every
+replay), and held to the same run with the step eager and to the same
+runs with the absorb swapped for the unfused head-batched route and EMA.
 
 All data is generated from a seed, not downloaded. It checks that each
 path launched its kernels, round-trips checkpoints, and reproduces the
@@ -152,6 +153,19 @@ KV_BUSY_STEPS = 16
 # the decode routine's sweep beside the main path's shape: (B, Hq, Hkv, K,
 # dh), as tests/test_torch_cuda.py's
 DECODE_SHAPES = [(1, 4, 4, 128, 128), (2, 8, 2, 33, 32), (1, 6, 2, 300, 16)]
+# the absorb kernel's sweep: (kv heads, k_max, head dim), as
+# tests/test_torch_cuda.py's; the main path's first
+ABSORB_SHAPES = [(8, 64, 64), (2, 33, 32), (4, 128, 128)]
+
+
+def absorb_rtol(d):
+    """The absorb kernel's tolerance on radius, v_radius and v_max,
+    relative: each is a norm of d float32 squares (plus an add and a max),
+    summed in the kernel's order and in torch's, which are not the same;
+    two sums of d non-negative terms in any two orders lie within
+    2(d - 1)·2⁻²⁴ of each other, relative, the square root halves that,
+    and the add rounds once more: (d + 2)·2⁻²⁴."""
+    return (d + 2) * 2.0**-24
 
 
 def phase(name):
@@ -218,6 +232,7 @@ def acc_check(x, c, valid, what):
     deviation from float64."""
     from repro_torch.core import assign
     from repro_torch.kernels import distance_argmin as da
+    from repro_torch.kernels import ref
     out = da.distance_argmin_l2_accumulate(x, c, valid)
     labels, d2, sums, cnt = out
     l1, d1 = da.distance_argmin_l2(x, c, valid)
@@ -235,8 +250,8 @@ def acc_check(x, c, valid, what):
     if not torch.equal(cnt, torch.bincount(lab, minlength=c.shape[0]).float()):
         raise AssertionError(f"{what}: counts differ")
     slots = min(da.ACC_SLOTS, -(-x.shape[0] // da.BN))
-    if not torch.equal(sums, slot_order_sums(x, labels, c.shape[0], slots,
-                                             da.BN)):
+    if not torch.equal(sums, ref.distance_argmin_l2_acc_sums_ref(
+            x, labels, c.shape[0], slots, da.BN)):
         raise AssertionError(f"{what}: sums differ from the kernel's order "
                              "rebuilt in float32")
     x64 = x.double()
@@ -248,35 +263,6 @@ def acc_check(x, c, valid, what):
     if bool((err > bound + 1e-30).any()):
         raise AssertionError(f"{what}: sums off by up to {float(err.max())}")
     return float(err.max())
-
-
-def slot_order_sums(x, labels, k, slots, bn):
-    """The accumulating kernel's (k, d) sums in its own order, in plain
-    float32: slot s takes the bn-row tiles s, s + slots, s + 2·slots, ...
-    and adds their rows in row order, starting from 0; the slots are then
-    added in slot order. Each step adds one row into every slot at once
-    (distinct targets, so one rounding each); padding goes to a spare
-    cluster k."""
-    n, d = x.shape
-    dev = x.device
-    r = torch.arange(n, device=dev)
-    tile = r // bn
-    slot = tile % slots
-    pos = (tile // slots) * bn + r % bn
-    table = torch.full((int(pos.max()) + 1, slots), n, dtype=torch.long,
-                       device=dev)
-    table[pos, slot] = r
-    xp = torch.cat([x.float(), torch.zeros((1, d), device=dev)])
-    lp = torch.cat([labels.long(), torch.full((1,), k, device=dev)])
-    acc = torch.zeros((slots * (k + 1), d), device=dev)
-    base = torch.arange(slots, device=dev) * (k + 1)
-    for rows in table:
-        idx = base + lp[rows]
-        acc[idx] = acc[idx] + xp[rows]
-    out = torch.zeros((k, d), device=dev)
-    for part in acc.view(slots, k + 1, d)[:, :k]:
-        out = out + part
-    return out
 
 
 def sharded_check(name, est, data, model, res, fresh, mesh, kernels,
@@ -589,21 +575,108 @@ def flash_phase(dev, gen):
     ]
 
 
+def absorb_inputs(gen, dev, H, K, d, dtype, live=None):
+    """One layer's state and one step's fresh rows for the absorb kernel:
+    (keys, values, state). keys and values (H, 1, d) in ``dtype``, strided
+    views of one projection (the step's layout); state the
+    ``LayerKVCluster`` tensors by name. ``live`` (H,) gives the valid rows
+    of each head as a prefix (a fitted layout); without it 80 % are valid
+    at random, and: head 0 ties two valid centers (the first must win),
+    the last head has no valid center, head 1 of more than two hits its
+    last row, and a dead row equal to its head's key is skipped."""
+    f32 = dict(generator=gen, device=dev)
+    c, vc = (torch.randn((H, K, d), **f32) for _ in range(2))
+    if live is None:
+        valid = torch.rand((H, K), **f32) < 0.8
+    else:
+        valid = torch.arange(K, device=dev)[None, :] < torch.tensor(
+            live, device=dev)[:, None]
+    kv_rows = torch.randn((1, 1, 2 * H, d), **f32).to(dtype)
+    keys = kv_rows[0, :, :H].transpose(0, 1)
+    values = kv_rows[0, :, H:].transpose(0, 1)
+    if live is None:
+        if K > 5:
+            c[0, 5] = c[0, 2]
+            valid[0, [2, 5]] = True
+            keys[0, 0] = c[0, 2] + 0.01 * torch.randn((d,), **f32)
+        if H > 2:
+            valid[1, K - 1] = True
+            keys[1, 0] = c[1, K - 1] + 0.01 * torch.randn((d,), **f32)
+        if K > 7:
+            valid[:, 7] = False
+            c[:, 7] = keys[:, 0].float()
+        valid[H - 1] = False
+    mass = torch.where(valid, torch.randint(1, 600, (H, K), **f32).float(),
+                       0.0)
+    state = {"centers": c, "v_cent": vc,
+             "radius": torch.rand((H, K), **f32) * 3,
+             "v_radius": torch.rand((H, K), **f32) * 3, "mass": mass,
+             "center_valid": valid, "v_max": torch.rand((H,), **f32) * 4}
+    return keys, values, state
+
+
+ABSORB_STATE = ("centers", "v_cent", "radius", "v_radius", "mass",
+                "center_valid", "v_max")
+
+
+def absorb_check(keys, values, state, what):
+    """Hold one absorb launch on a copy of ``state`` against the
+    head-batched route (labels and d² bit for bit) and against the unfused
+    path (``kv_cluster.absorb_plain``: the route kernel, then the plain
+    EMA) on another copy: labels, centers, v_cent and mass bit for bit,
+    radius, v_radius and v_max within ``absorb_rtol``. Returns the largest
+    absolute deviation of those three."""
+    from repro_torch.kernels import distance_argmin as da
+    from repro_torch.serve import kv_cluster as kv
+    fused = {n: t.clone() for n, t in state.items()}
+    plain = {n: t.clone() for n, t in state.items()}
+    c = state["centers"]
+    csq = torch.sum(c * c, dim=-1)
+    decay = torch.pow(1.0 - KV_EMA, torch.ones((1,), device=c.device))
+    lab, d2 = da.l2_absorb_heads(keys, values,
+                                 *(fused[n] for n in ABSORB_STATE), csq, decay)
+    hl, hd = da.distance_argmin_l2_heads(keys.float(), c, csq,
+                                         state["center_valid"])
+    if not (torch.equal(lab, hl) and torch.equal(d2, hd)):
+        raise AssertionError(f"{what}: absorb labels or d² differ from the "
+                             "head-batched route")
+    pl, _ = kv.absorb_plain(keys, values, *(plain[n] for n in ABSORB_STATE),
+                            csq, ema=KV_EMA)
+    if not torch.equal(pl, lab):
+        raise AssertionError(f"{what}: absorb labels differ from the plain "
+                             "path's")
+    for n in ("centers", "v_cent", "mass", "center_valid"):
+        if not torch.equal(fused[n], plain[n]):
+            raise AssertionError(f"{what}: absorb {n} differs from the "
+                                 "plain EMA's bits")
+    worst = 0.0
+    for n in ("radius", "v_radius", "v_max"):
+        rel = float(((fused[n] - plain[n]).abs()
+                     / plain[n].abs().clamp(min=1e-30)).max())
+        if not rel <= absorb_rtol(c.shape[2]):
+            raise AssertionError(f"{what}: absorb {n} off by {rel:.3g} "
+                                 "relative")
+        worst = max(worst, float((fused[n] - plain[n]).abs().max()))
+    return worst
+
+
 def decode_kernels(dev, cfg, k_stars):
     """Phase 11's kernels of the clustered step at the main path's shapes:
-    the head-batched L2 route (one layer's kv heads, one new key each,
+    the absorb kernel (one layer's kv heads, one new key and value each,
     against k_max centroids, the first ``len(k_stars)`` of them valid per
-    head, as the run's first layer fitted) and the decode routine of the
-    centroid attention (bf16 queries and fresh rows over the float32
-    state), each held to its plain version (the route also to one launch
-    per head, bit for bit), then timed beside the per-head launches / SDPA.
-    Returns their rows of the kernels line (launches filled in by the
-    caller)."""
+    head, as the run's first layer fitted), the head-batched L2 route that
+    its labels are held to (the unfused path's, and the n > 1 path's), and
+    the decode routine of the centroid attention (bf16 queries and fresh
+    rows over the float32 state): each held to its plain version, then
+    timed beside the unfused path, the per-head launches, ``torch.bmm``,
+    SDPA and an empty kernel. Returns their rows of the kernels line
+    (launches filled in by the caller)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import distance_argmin as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
+    from repro_torch.serve import kv_cluster as kv
     gen = torch.Generator(device=dev).manual_seed(2)
     H, hd, Hq = cfg.num_kv_heads, cfg.resolved_head_dim, cfg.num_heads
     K = KV_KMAX
@@ -635,6 +708,10 @@ def decode_kernels(dev, cfg, k_stars):
     heads_plain_ms = cuda_ms(lambda: ref.distance_argmin_l2_heads_ref(
         x, c, csq, valid), 50)
     heads_lib_ms = cuda_ms(lambda: torch.bmm(x, c.transpose(1, 2)), 500)
+    bmm_dev = device_ms(lambda: torch.bmm(x, c.transpose(1, 2)), 50)
+    # the device time of an empty kernel (a spin of 0 cycles): the least a
+    # launch takes on the device, beside the decode-shaped rows
+    empty_dev = device_ms(lambda: torch.cuda._sleep(0), 200)
     live = int(ks.sum())
     # the bytes the function needs: x, the valid centers' rows and their
     # ||c||^2 read once (float32), a validity flag a center (a byte),
@@ -648,8 +725,58 @@ def decode_kernels(dev, cfg, k_stars):
           f"max |Δd²| {heads_err:.3g}; one launch {heads_ms:.4f} ms against "
           f"{H} launches {per_head_ms:.4f} ms (device time alone "
           f"{heads_dev:.4f} / {per_head_dev:.4f} ms), plain "
-          f"{heads_plain_ms:.4f} ms, torch.bmm {heads_lib_ms:.4f} ms, bound "
-          f"{heads_bound:.7f} ms ({heads_by})")
+          f"{heads_plain_ms:.4f} ms, torch.bmm {heads_lib_ms:.4f} ms (device "
+          f"{bmm_dev:.4f} ms), bound {heads_bound:.7f} ms ({heads_by}); an "
+          f"empty kernel's device time {empty_dev:.4f} ms")
+
+    abs_err = 0.0
+    for Hs, Ks, ds in ABSORB_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            abs_err = max(abs_err, absorb_check(
+                *absorb_inputs(gen, dev, Hs, Ks, ds, dtype),
+                f"absorb ({Hs}, {Ks}, {ds}) {dtype}"))
+    # the main path's inputs: bf16 fresh rows, k* valid rows a head
+    keys, values, state = absorb_inputs(gen, dev, H, K, hd, torch.bfloat16,
+                                        live=k_stars)
+    abs_err = max(abs_err, absorb_check(keys, values, state,
+                                        "absorb, main path"))
+    st = [state[n] for n in ABSORB_STATE]
+    decay = torch.pow(1.0 - KV_EMA, torch.ones((1,), device=dev))
+
+    def fused():
+        cs = torch.sum(st[0] * st[0], dim=-1)
+        return da.l2_absorb_heads(keys, values, *st, cs, decay)
+
+    def unfused():
+        cs = torch.sum(st[0] * st[0], dim=-1)
+        return kv.absorb_plain(keys, values, *st, cs, ema=KV_EMA)
+
+    abs_ms = cuda_ms(fused, 500)
+    abs_dev = device_ms(fused, 50, "l2_absorb_heads_kernel")
+    abs_plain_ms = cuda_ms(unfused, 100)
+    abs_plain_dev = device_ms(unfused, 50)
+    csq_dev = device_ms(lambda: torch.sum(st[0] * st[0], dim=-1), 50)
+    # the bytes the function needs: the fresh rows at their element size,
+    # the valid centers' rows and their ||c||^2 (float32), a flag a center
+    # (a byte), the hit rows of centers and v_cent read and written, the
+    # hit entries of radius, v_radius and mass and v_max read and written,
+    # the factor, labels and d² written; 2·d flops per (head, valid center)
+    # for the route and ~20·d for the EMA, at the float32 rate
+    abs_bound, abs_by = bound(
+        2 * keys.element_size() * H * hd + 4.0 * (live * hd + live)
+        + H * K + 4.0 * (4 * H * hd + 6 * H + 2 * H + 1 + 2 * H),
+        [(2.0 * live * hd + 20.0 * H * hd) / PEAK_F32_FLOPS])
+    print(f"  l2_absorb_heads over {ABSORB_SHAPES} (heads, k_max, d), float32"
+          f" and bfloat16 (a tie, a head with no valid center, a hit on the "
+          f"last row, a dead row at the key) and at ({H}, 1, {K}, {hd}) bf16 "
+          f"with {live} valid: labels and d² equal the head-batched route's,"
+          f" centers, v_cent and mass the unfused path's bit for bit; radii "
+          f"and v_max within (d + 2)·2⁻²⁴ relative, max |Δ| {abs_err:.3g}. One "
+          f"launch {abs_ms:.4f} ms (device time {abs_dev:.4f} ms), unfused "
+          f"route + EMA {abs_plain_ms:.4f} ms (device time of its kernels "
+          f"{abs_plain_dev:.4f} ms), both with ‖c‖² ({csq_dev:.4f} ms of "
+          f"device time); bound {abs_bound:.7f} ms ({abs_by}); an empty "
+          f"kernel's device time {empty_dev:.4f} ms")
 
     dec_err = 0.0
     for B, hq, hkv, k, dh in DECODE_SHAPES + [(1, Hq, H, K, hd)]:
@@ -722,6 +849,12 @@ def decode_kernels(dev, cfg, k_stars):
           f"a float mask {dec_lib_ms:.4f} ms (device {sdpa_dev:.4f} ms), bound "
           f"{dec_bound:.7f} ms ({dec_by})")
     return [
+        {"name": "l2_absorb_heads", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/distance_argmin.cu",
+         "replaces": "src/repro/kernels/distance_argmin.py:188",
+         "launches": None, "max_abs_err": abs_err, "ms": abs_ms,
+         "plain_ms": abs_plain_ms, "bound_ms": abs_bound,
+         "bound_by": abs_by, "library_ms": None},
         {"name": "distance_argmin_l2_heads", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/distance_argmin.cu",
          "replaces": "src/repro/kernels/distance_argmin.py:188",
@@ -762,16 +895,77 @@ def plain_prefill_override(cfg, dtype=torch.float32, fault=None):
     return override
 
 
-def kv_path(rt, dev, gen, all_kernels):
+def unfused_absorb(keys, values, *state, ema, decay):
+    """``ops.l2_absorb_heads`` unfused: the head-batched route kernel,
+    then the plain EMA (``kv_cluster.absorb_plain``), on the card."""
+    from repro_torch.serve import kv_cluster as kv
+    del decay
+    return kv.absorb_plain(keys, values, *state, ema=ema)
+
+
+def fit_kernels(dev, keys, int_rate):
+    """Rows 1 and 5 at the LM cell's fit inputs: one per-head GEEK fit
+    (k_max KV_KMAX) on a layer's prefill keys of one kv head, the first
+    inputs the fit hands to ``ops.distance_argmin_l2`` and
+    ``ops.minhash_segments`` recorded, then each kernel timed on them
+    (back to back, and device time alone) beside its bound."""
+    from repro_torch.kernels import distance_argmin as da
+    from repro_torch.kernels import minhash_buckets as mh
+    from repro_torch.serve import kv_cluster as kv
+    seen, real = {}, {}
+    for name in ("distance_argmin_l2", "minhash_segments"):
+        real[name] = getattr(kv.kops, name)
+
+        def spy(*args, name=name, **kwargs):
+            seen.setdefault(name, args)
+            return real[name](*args, **kwargs)
+        setattr(kv.kops, name, spy)
+    try:
+        layer = kv.LayerKVCluster(1, keys.shape[1],
+                                  kv.default_kv_config(KV_KMAX), ema=KV_EMA,
+                                  device=dev)
+        layer.start(keys[:, None], keys[:, None])
+    finally:
+        for name, fn in real.items():
+            setattr(kv.kops, name, fn)
+    x, c, cv = seen["distance_argmin_l2"]
+    n, d = x.shape
+    kvalid = int(cv.sum())
+    l2_ms = cuda_ms(lambda: da.distance_argmin_l2(x, c, cv), 200)
+    l2_dev = device_ms(lambda: da.distance_argmin_l2(x, c, cv), 50,
+                       "l2_argmin")
+    l2_b, l2_by = bound(4.0 * (n * d + kvalid * d + kvalid + 2 * n)
+                        + c.shape[0], [2.0 * n * kvalid * d / PEAK_F32_FLOPS])
+    ids, offsets, mkeys = seen["minhash_segments"]
+    segs = offsets.numel() - 1
+    mh_ms = cuda_ms(lambda: mh.minhash_segments(ids, offsets, mkeys), 200)
+    mh_dev = device_ms(lambda: mh.minhash_segments(ids, offsets, mkeys), 50,
+                       "minhash")
+    mh_b, mh_by = bound(4.0 * (ids.numel() + offsets.numel() + mkeys.numel()
+                               + segs),
+                        [ids.numel() * mkeys.shape[0] * 10 / int_rate])
+    print(f"  at the LM cell's fit inputs (one kv head's {n} prefill keys, "
+          f"d {d}): distance_argmin_l2 on ({n}, {c.shape[0]}, {d}), {kvalid} "
+          f"valid: {l2_ms:.4f} ms back to back, device time {l2_dev:.4f} ms,"
+          f" bound {l2_b:.7f} ms ({l2_by}); minhash_segments on {segs} "
+          f"segments, {ids.numel()} ids, {mkeys.shape[0]} hashes: "
+          f"{mh_ms:.4f} ms, device time {mh_dev:.4f} ms, bound {mh_b:.7f} ms "
+          f"({mh_by})")
+
+
+def kv_path(rt, dev, gen, all_kernels, int_rate):
     """Phase 11: Qwen3-0.6B at full width through ``clustered_decode``,
     exact and clustered, with every launch count reset just before each
     run and read just after; the prefill's logits against the plain
     attention; the clustered run replayed from its CUDA graph against the
-    same run eager; the device's busy share of the decode steps; the
-    clustered step's kernels (``decode_kernels``); the error bound at one
-    decode step of a few layers through the per-head API. Returns the
-    launches of the phase-10 kernels (the prefill's, and the per-head
-    path's (B, S) kernel) and the rows of the step's kernels."""
+    same run eager, and both against the same runs with the absorb kernel
+    swapped for the unfused route + EMA; the device's busy share of the
+    decode steps and the step's kernels in its trace; the clustered step's
+    kernels (``decode_kernels``); rows 1 and 5 at the fits' inputs; the
+    error bound at one decode step of a few layers through the per-head
+    API. Returns the launches of the phase-10 kernels (the prefill's, and
+    the per-head path's (B, S) kernel) and the rows of the step's
+    kernels."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     from repro_torch.models import layers as L
@@ -781,7 +975,7 @@ def kv_path(rt, dev, gen, all_kernels):
     from repro_torch.kernels import distance_argmin as da
     kernels = all_kernels + (fa.flash_attention, fa.flash_centroid_attention,
                              fa.flash_centroid_decode,
-                             da.distance_argmin_l2_heads)
+                             da.distance_argmin_l2_heads, da.l2_absorb_heads)
     cfg = rt.get_arch(KV_ARCH)
     phase(f"11 KV-cache serving path: {cfg.name} ({cfg.num_layers} layers, "
           f"d_model {cfg.d_model}), prompt {KV_PROMPT}, {KV_DECODE} decoded")
@@ -855,10 +1049,15 @@ def kv_path(rt, dev, gen, all_kernels):
         return real_decode(*args, **kwargs)
 
     runs, launches, calls = {}, {}, {}
+    real_absorb = kv.kops.l2_absorb_heads
     kv.kops.flash_centroid_decode = counted_decode
     try:
-        for run in ("exact", "clustered", "clustered, eager"):
+        for run in ("exact", "clustered", "clustered, eager",
+                    "clustered, unfused absorb",
+                    "clustered, eager, unfused absorb"):
             mode = run.split(",")[0]
+            kv.kops.l2_absorb_heads = unfused_absorb if "unfused" in run \
+                else real_absorb
             reset_launches(*kernels)
             decode_calls[0] = 0
             torch.cuda.synchronize()
@@ -869,7 +1068,7 @@ def kv_path(rt, dev, gen, all_kernels):
                                       gcfg=kv.default_kv_config(KV_KMAX),
                                       ema=KV_EMA, refresh_every=KV_REFRESH,
                                       device=dev,
-                                      cuda_graph=run != "clustered, eager")
+                                      cuda_graph="eager" not in run)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches[run] = {k.__name__: k.launches for k in kernels}
@@ -894,52 +1093,72 @@ def kv_path(rt, dev, gen, all_kernels):
             print(f"    launches {launches[run]}")
     finally:
         kv.kops.flash_centroid_decode = real_decode
+        kv.kops.l2_absorb_heads = real_absorb
     heads = cfg.num_layers * cfg.num_kv_heads
     per_run = cfg.num_layers * KV_DECODE
-    exact, clus = runs["exact"], runs["clustered"]
-    eager = runs["clustered, eager"]
+    clus = runs["clustered"]
     lx, lc = launches["exact"], launches["clustered"]
-    if not (math.isfinite(exact["ppl"]) and math.isfinite(clus["ppl"])):
+    clustered_runs = [r for r in runs if r != "exact"]
+    if not all(math.isfinite(r["ppl"]) for r in runs.values()):
         raise AssertionError("non-finite perplexity")
-    if min(clus["k_stars"]) <= 0 or max(clus["overflows"]) != 0:
-        raise AssertionError("a head has k* = 0 or overflow")
-    if clus["refreshes"] != heads * ((KV_DECODE - 1) // KV_REFRESH):
-        raise AssertionError(f"refreshes {clus['refreshes']}")
+    for run in clustered_runs:
+        out = runs[run]
+        if min(out["k_stars"]) <= 0 or max(out["overflows"]) != 0:
+            raise AssertionError(f"{run}: a head has k* = 0 or overflow")
+        if out["refreshes"] != heads * ((KV_DECODE - 1) // KV_REFRESH):
+            raise AssertionError(f"{run}: refreshes {out['refreshes']}")
     if lx["flash_attention"] != cfg.num_layers or \
             lc["flash_attention"] != cfg.num_layers:
         raise AssertionError("flash_attention did not launch once a layer per "
                              "prefill")
     # one centroid attention a layer a step, all of it the decode kernel
     # (which flash_centroid_attention's count counts too), graph replays
-    # counted; one head-batched route a layer a step
+    # counted; one absorb a layer a step (the unfused runs: one
+    # head-batched route)
     if lc["flash_centroid_decode"] != per_run or \
             lc["flash_centroid_attention"] != per_run or \
             lx["flash_centroid_attention"] != 0:
         raise AssertionError("the decode kernel did not launch once a layer "
                              "per step")
-    if lc["distance_argmin_l2_heads"] != per_run or \
-            launches["clustered, eager"]["distance_argmin_l2_heads"] != per_run:
-        raise AssertionError("the head-batched route did not launch once a "
-                             "layer per step")
+    for run in clustered_runs:
+        want = (0, per_run) if "unfused" in run else (per_run, 0)
+        got = (launches[run]["l2_absorb_heads"],
+               launches[run]["distance_argmin_l2_heads"])
+        if got != want:
+            raise AssertionError(f"{run}: absorb and head-batched route "
+                                 f"launched {got} times, not {want}")
     if lc["distance_argmin_l2"] <= 0 or lc["minhash_segments"] <= 0:
         raise AssertionError("the fits did not run the L2 and MinHash kernels")
     # replayed, not eager: the wrapper ran at the first step and the capture
-    if calls["clustered"] != 2 * cfg.num_layers or \
-            calls["clustered, eager"] != per_run:
-        raise AssertionError(f"the clustered step was not replayed from its "
-                             f"graph: {calls}")
-    # the same kernels on the same inputs: the same bits
-    if clus["k_stars"] != eager["k_stars"] or clus["ppl"] != eager["ppl"]:
-        raise AssertionError(f"graph replay differs from the eager step: ppl "
-                             f"{clus['ppl']} vs {eager['ppl']}")
-    sx, sc, se = (np.array(r["seconds"]["steps"]) * 1e3
-                  for r in (exact, clus, eager))
+    for run in clustered_runs:
+        if calls[run] != (per_run if "eager" in run else 2 * cfg.num_layers):
+            raise AssertionError(f"{run}: the clustered step was not replayed "
+                                 f"from its graph: {calls}")
+    # the same kernels on the same inputs: the same bits; the absorb kernel
+    # writes the unfused path's labels, centers, v_cent and mass, the
+    # attention's inputs, so the same perplexity
+    for run in clustered_runs[1:]:
+        if runs[run]["k_stars"] != clus["k_stars"] or \
+                runs[run]["ppl"] != clus["ppl"]:
+            raise AssertionError(f"{run} differs from the clustered run: ppl "
+                                 f"{runs[run]['ppl']} vs {clus['ppl']}")
+    sx, sc, se, su, sue = (
+        np.array(runs[r]["seconds"]["steps"]) * 1e3
+        for r in ("exact", "clustered", "clustered, eager",
+                  "clustered, unfused absorb",
+                  "clustered, eager, unfused absorb"))
     print(f"  decode step, ms (mean / median): clustered, graph "
           f"{sc.mean():.3f} / {np.median(sc):.3f}; exact {sx.mean():.3f} / "
           f"{np.median(sx):.3f}; clustered, eager {se.mean():.3f} / "
-          f"{np.median(se):.3f}. Clustered / exact: {sc.mean() / sx.mean():.3f}"
-          f" ({'below' if sc.mean() < sx.mean() else 'NOT below'} the exact "
-          f"step). Graph vs eager: ppl and k* equal")
+          f"{np.median(se):.3f}; unfused absorb, graph {su.mean():.3f} / "
+          f"{np.median(su):.3f}, eager {sue.mean():.3f} / "
+          f"{np.median(sue):.3f}. Clustered / exact: "
+          f"{sc.mean() / sx.mean():.3f} ({'below' if sc.mean() < sx.mean() else 'NOT below'}"
+          f" the exact step); clustered / unfused median, graph: "
+          f"{np.median(sc) / np.median(su):.3f} "
+          f"({'no slower' if np.median(sc) <= np.median(su) else 'SLOWER'})."
+          f" Graph vs eager, fused vs unfused absorb: ppl and k* equal "
+          f"({clus['ppl']:.6f})")
 
     # the device's busy share of the decode steps: the device time of a
     # step's kernels, from profiled runs of KV_BUSY_STEPS steps (no refresh,
@@ -949,34 +1168,50 @@ def kv_path(rt, dev, gen, all_kernels):
     # steps the trace counts the slice's two kernels: one of each a layer a
     # step, the replays' launches seen on the device
     from torch.profiler import ProfilerActivity, profile
-    step_kernels = ("flash_centroid_decode_kernel", "l2_argmin_heads_kernel")
-    for mode, steps in (("clustered", sc), ("exact", sx)):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            kv.clustered_decode(params, cfg,
-                                tokens[:, :KV_PROMPT + KV_BUSY_STEPS],
-                                KV_PROMPT, mode=mode,
-                                gcfg=kv.default_kv_config(KV_KMAX),
-                                ema=KV_EMA, refresh_every=KV_REFRESH,
-                                device=dev)
+    step_kernels = ("flash_centroid_decode_kernel", "l2_absorb_heads_kernel",
+                    "l2_argmin_heads_kernel")
+    # (each kernel's count a step: the decode kernel, the absorb kernel,
+    # the head-batched route)
+    nl = cfg.num_layers
+    traces = (("clustered", sc, (nl, nl, 0)),
+              ("clustered, unfused absorb", su, (nl, 0, nl)),
+              ("exact", sx, (0, 0, 0)))
+    for run, steps, wants in traces:
+        mode = run.split(",")[0]
+        kv.kops.l2_absorb_heads = unfused_absorb if "unfused" in run \
+            else real_absorb
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                kv.clustered_decode(params, cfg,
+                                    tokens[:, :KV_PROMPT + KV_BUSY_STEPS],
+                                    KV_PROMPT, mode=mode,
+                                    gcfg=kv.default_kv_config(KV_KMAX),
+                                    ema=KV_EMA, refresh_every=KV_REFRESH,
+                                    device=dev)
+        finally:
+            kv.kops.l2_absorb_heads = real_absorb
         busy, events, traced, named = busy_per_range(
             prof, kv.STEP_SPAN, skip=1, names=step_kernels)
-        print(f"  {mode} decode step, device: {busy:.3f} ms of kernels and "
+        print(f"  {run} decode step, device: {busy:.3f} ms of kernels and "
               f"copies, {events:.0f} device events (torch.profiler, steps "
               f"2-{KV_BUSY_STEPS}); busy share {busy / steps[1:].mean():.1%}"
               f" of the untraced mean step {steps[1:].mean():.3f} ms "
               f"({busy / traced:.1%} of the traced step, {traced:.3f} ms)")
-        want = cfg.num_layers if mode == "clustered" else 0
-        for name, counts in named.items():
+        for (name, counts), want in zip(named.items(), wants):
             if len(counts) != KV_BUSY_STEPS - 1 or set(counts) != {want}:
-                raise AssertionError(f"{mode}: {name} ran {counts} times in "
+                raise AssertionError(f"{run}: {name} ran {counts} times in "
                                      f"the traced steps, not {want} a step")
         print(f"    traced on the device, a step: "
               f"{', '.join(f'{n} {c[0]}' for n, c in named.items())} "
               f"(in each of the {KV_BUSY_STEPS - 1} steps)")
     rows = decode_kernels(dev, cfg, clus["k_stars"][:cfg.num_kv_heads])
-    rows[0]["launches"] = lc["distance_argmin_l2_heads"]
-    rows[1]["launches"] = lc["flash_centroid_decode"]
+    # the head-batched route's count is the unfused run's: the fused main
+    # path routes a step's rows in the absorb kernel
+    rows[0]["launches"] = lc["l2_absorb_heads"]
+    rows[1]["launches"] = \
+        launches["clustered, unfused absorb"]["distance_argmin_l2_heads"]
+    rows[2]["launches"] = lc["flash_centroid_decode"]
 
     # the first decode step of a few layers: each kv head fitted on its
     # prefill keys, the step's real queries and fresh K/V. The clustered
@@ -986,6 +1221,7 @@ def kv_path(rt, dev, gen, all_kernels):
     # row appended unclustered) to the plain version on the same rows.
     caches = T.stack_cache_init(cfg, 1, KV_PROMPT + 1, dev)
     M.forward(params, cfg, prompt, caches=caches, cache_len=0)
+    fit_kernels(dev, caches[0]["k"][0, :KV_PROMPT, 0].float(), int_rate)
     step_qkv = {}
 
     def capture(layer, p, h, *, positions, cache, cache_len):
@@ -997,6 +1233,7 @@ def kv_path(rt, dev, gen, all_kernels):
     M.decode_step(params, cfg, caches, KV_PROMPT,
                   tokens[:, KV_PROMPT:KV_PROMPT + 1], attn_override=capture)
     worst, plain_err, g = 0.0, 0.0, cfg.num_heads // cfg.num_kv_heads
+    fit_abs_err = 0.0
     ulps, differ, elems = 0, 0, 0
     # the per-head API's path: OnlineKVCluster, stack_heads and
     # clustered_attention on the (B, S) kernel; its launches counted alone
@@ -1044,6 +1281,14 @@ def kv_path(rt, dev, gen, all_kernels):
                                          extra_v=v_step)
         plain_err = max(plain_err, fa_check(got_d, want_x,
                                             f"layer {layer}, decode kernel"))
+        # the absorb kernel on the same fitted state and the step's fresh
+        # rows (the layer layout), held to the unfused path
+        fitted = {name: torch.stack([getattr(cl.layer, name)[0]
+                                     for cl in heads_])
+                  for name in ABSORB_STATE}
+        fit_abs_err = max(fit_abs_err, absorb_check(
+            k_step[0].transpose(0, 1), v_step[0].transpose(0, 1), fitted,
+            f"absorb, layer {layer}'s fitted state"))
         bits_x, bits_d = (t.view(torch.int16).int() for t in (got_x, got_d))
         differ += int((bits_x != bits_d).sum())
         elems += got_x.numel()
@@ -1072,7 +1317,10 @@ def kv_path(rt, dev, gen, all_kernels):
           f"fresh row through both kernels); error bound held, largest error"
           f" / bound {worst:.3g}. The step's {cfg.dtype} output, decode "
           f"kernel vs (B, S) kernel: {differ} of {elems} elements differ, by "
-          f"at most {ulps} ulp")
+          f"at most {ulps} ulp. The absorb kernel on each layer's fitted "
+          f"state and the step's rows: the unfused path's bits, radii and "
+          f"v_max max |Δ| {fit_abs_err:.3g}")
+    rows[0]["max_abs_err"] = max(rows[0]["max_abs_err"], fit_abs_err)
     return {"flash_attention": lc["flash_attention"],
             "flash_centroid_attention": tiles}, rows
 
@@ -1607,7 +1855,7 @@ def run_paths(rt, dev, gen, card, int_rate, popc_rate, data, x_fit, x_new,
     del u, het_model, url_model, het_est, url_est
     torch.cuda.empty_cache()
     flash_rows = flash_phase(dev, gen)
-    kv_launch, decode_rows = kv_path(rt, dev, gen, all_kernels)
+    kv_launch, decode_rows = kv_path(rt, dev, gen, all_kernels, int_rate)
     kernels = [
         {"name": "distance_argmin_l2", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/distance_argmin.cu",

@@ -45,6 +45,23 @@ def distance_argmin_l2_heads(x, centers, csq, center_valid):
     return _da.distance_argmin_l2_heads(x, centers, csq, center_valid)
 
 
+def l2_absorb_heads(keys, values, centers, v_cent, radius, v_radius, mass,
+                    center_valid, v_max, csq, *, ema, decay):
+    """The decode step's absorb of one layer's kv heads, in place: keys
+    and values (H, 1, d) routed against the state and EMA-drifted into the
+    hit clusters -> (labels (H, 1) int32, d² (H, 1)). One launch for all
+    heads on the card (``decay``, the EMA's factor for one row as a (1,)
+    device tensor, feeds the kernel); ``serve.kv_cluster.absorb_plain``
+    with ``ema`` (the head-batched route, then one EMA) on the CPU."""
+    if _on_cpu(keys):
+        from repro_torch.serve.kv_cluster import absorb_plain
+        return absorb_plain(keys, values, centers, v_cent, radius, v_radius,
+                            mass, center_valid, v_max, csq, ema=ema)
+    return _da.l2_absorb_heads(keys, values, centers, v_cent, radius,
+                               v_radius, mass, center_valid, v_max, csq,
+                               decay)
+
+
 def distance_argmin_hamming(codes, centers, center_valid, *,
                             block: int = 4096):
     """(labels int32, mismatch counts float32), the contract of
@@ -113,7 +130,8 @@ def flash_centroid_decode(q, centers, v_cent, mass, center_valid,
 
 #: every wrapper that counts its launches (``fn.launches``)
 COUNTED = (_da.distance_argmin_l2, _da.distance_argmin_l2_heads,
-           _da.distance_argmin_l2_accumulate, _dh.distance_argmin_hamming,
-           _dh.distance_argmin_hamming_packed, _mh.minhash_segments,
+           _da.distance_argmin_l2_accumulate, _da.l2_absorb_heads,
+           _dh.distance_argmin_hamming, _dh.distance_argmin_hamming_packed,
+           _mh.minhash_segments,
            _fa.flash_attention, _fa.flash_centroid_attention,
            _fa.flash_centroid_decode)

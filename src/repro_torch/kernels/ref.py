@@ -36,6 +36,35 @@ def distance_argmin_l2_heads_ref(x, centers, csq, center_valid):
             torch.stack([d2 for _, d2 in out]))
 
 
+def distance_argmin_l2_acc_sums_ref(x, labels, k, slots, bn):
+    """The accumulating kernel's (k, d) sums in its own order, in plain
+    float32: slot s takes the bn-row tiles s, s + slots, s + 2·slots, ...
+    and adds their rows in row order, starting from 0; the slots are then
+    added in slot order. Each step adds one row into every slot at once
+    (distinct targets, so one rounding each); padding goes to a spare
+    cluster k. The kernel's sums equal these bit for bit."""
+    n, d = x.shape
+    dev = x.device
+    r = torch.arange(n, device=dev)
+    tile = r // bn
+    slot = tile % slots
+    pos = (tile // slots) * bn + r % bn
+    table = torch.full((int(pos.max()) + 1, slots), n, dtype=torch.long,
+                       device=dev)
+    table[pos, slot] = r
+    xp = torch.cat([x.float(), torch.zeros((1, d), device=dev)])
+    lp = torch.cat([labels.long(), torch.full((1,), k, device=dev)])
+    acc = torch.zeros((slots * (k + 1), d), device=dev)
+    base = torch.arange(slots, device=dev) * (k + 1)
+    for rows in table:
+        idx = base + lp[rows]
+        acc[idx] = acc[idx] + xp[rows]
+    out = torch.zeros((k, d), device=dev)
+    for part in acc.view(slots, k + 1, d)[:, :k]:
+        out = out + part
+    return out
+
+
 def distance_argmin_hamming_ref(codes, centers, center_valid):
     """(labels int32, mismatch counts int32); an invalid center counts
     d + 1, as ``core.assign.assign_hamming`` (the reference's main path)

@@ -6,12 +6,15 @@ the k* SILK-discovered key centroids of each (layer, kv head), each
 weighted by its cluster mass:
 
 - **Routing.** Every new key is assigned to a centroid by the model's
-  exact ``predict`` rule (on the card, one head-batched launch of the L2
-  assignment kernel for all heads of a layer).
+  exact ``predict`` rule.
 - **Streaming center updates.** Each routed key drifts its centroid by an
   exponential moving average (``ema_update``; clusters that receive no
   row come back bit for bit); every ``refresh_every`` steps a full GEEK
-  re-fit on the cache can grow or shrink k*.
+  re-fit on the cache can grow or shrink k*. On the card a decode step's
+  route and update of all kv heads of a layer are one launch of the
+  hand-written absorb kernel (``ops.l2_absorb_heads``), in place; a batch
+  of several rows a head takes the head-batched L2 route kernel and one
+  EMA (``absorb_plain``).
 - **Clustered attention.** ``softmax(q·c/√d + log mass) @ v_centroids``
   is per-key attention with every key/value moved to its centroid, so
   the error obeys the closed-form bound of ``error_bound``. On the card
@@ -25,7 +28,7 @@ right after the step.
 
 ``LayerKVCluster`` holds one attention layer's heads as stacked device
 tensors allocated once, fitted head by head and written in place, routed
-in one head-batched launch and EMA-updated in one pass for all heads.
+and EMA-updated in one pass for all heads.
 ``OnlineKVCluster``, the per-head API, is a view of a one-head layer.
 ``clustered_decode``'s step reads nothing on the host, so on the card it
 is captured once as a CUDA graph and replayed (the reference jits its
@@ -172,6 +175,36 @@ def _ema(centers, radius, mass, v_cent, v_radius, keys, values, labels, *,
     return c_new, r_new, mass + m_new, v_new, vr_new
 
 
+def absorb_plain(keys, values, centers, v_cent, radius, v_radius, mass,
+                 center_valid, v_max, csq, *, ema: float):
+    """Route (H, n, d) keys of H heads against each head's centers and
+    EMA-drift the hit clusters, in place: the head-batched route
+    (``ops.distance_argmin_l2_heads`` on ‖c‖² ``csq``), then one ``_ema``
+    over the heads' states flattened to (H·K, …), head h's labels offset
+    by h·K (every per-cluster quantity is independent of the others, so
+    each head gets its own result's bits), then ``v_max``. The plain
+    version of ``ops.l2_absorb_heads`` (its CPU path) and the card's path
+    for n > 1. Returns (labels (H, n) int32, d² (H, n) float32)."""
+    H, n, d = keys.shape
+    K = centers.shape[1]
+    keys = keys.to(torch.float32)
+    values = values.to(torch.float32)
+    labels, d2 = kops.distance_argmin_l2_heads(keys, centers, csq,
+                                               center_valid)
+    offsets = torch.arange(H, device=keys.device)[:, None] * K
+    flat = (labels.to(torch.int64) + offsets).reshape(-1)
+    new = _ema(centers.view(H * K, d), radius.view(-1), mass.view(-1),
+               v_cent.view(H * K, d), v_radius.view(-1),
+               keys.reshape(H * n, d), values.reshape(H * n, d), flat,
+               ema=ema, rows=n)
+    for dst, src in zip((centers, radius, mass, v_cent, v_radius), new):
+        dst.copy_(src.view(dst.shape))
+    if n:
+        torch.maximum(v_max, torch.linalg.norm(values, dim=-1).amax(dim=1),
+                      out=v_max)
+    return labels, d2
+
+
 def _value_stats(labels, values, valid):
     """Per-cluster (mass, value centroid, value radius) from fit labels."""
     k_max = valid.shape[0]
@@ -209,10 +242,9 @@ class LayerKVCluster:
     is its own GEEK fit, from its own generator seed, and a fit or refresh
     writes its result into the head's row in place, so the tensors'
     storage never moves and a CUDA graph that reads them stays valid.
-    ``update`` routes every head's new keys in one head-batched launch of
-    the L2 kernel and runs one EMA over all heads, flattened to (H·k_max,
-    …): every per-cluster quantity is independent of the others, so each
-    head gets the bits of a one-head layer. No per-head ``GeekModel`` is
+    ``update`` routes every head's new keys and EMA-drifts the hit
+    clusters of all heads in one pass (``absorb``): each head gets the
+    bits of a one-head layer. No per-head ``GeekModel`` is
     kept up to date; ``head_model(h)`` rebuilds one from row h.
 
     Parameters
@@ -259,7 +291,9 @@ class LayerKVCluster:
         self.center_valid = torch.zeros((H, K), dtype=torch.bool,
                                         device=self.device)
         self.v_max = torch.zeros((H,), **f32)
-        self._offsets = torch.arange(H, device=self.device)[:, None] * K
+        # the EMA's factor for one routed row, as the plain EMA's torch.pow
+        # computes it on this device: the absorb kernel's input
+        self._decay = torch.pow(1.0 - self.ema, torch.ones((1,), **f32))
         self._models: list[GeekModel | None] = [None] * H
         self._fits = [0] * H
         self.k_stars = [0] * H      # per head, after its last fit
@@ -317,26 +351,20 @@ class LayerKVCluster:
     def absorb(self, keys: torch.Tensor, values: torch.Tensor
                ) -> torch.Tensor:
         """Route (H, n, hd) keys/values and EMA-drift the hit clusters of
-        all heads in one pass, in place. Device work only: nothing is read
-        on the host, so a CUDA graph can hold it (``update`` also counts
-        the rows). Returns (H, n) int32 labels."""
-        H, n, d = keys.shape
-        K = self.centers.shape[1]
-        keys = keys.to(torch.float32)
-        values = values.to(torch.float32)
-        labels = self.route(keys)
-        flat = (labels.to(torch.int64) + self._offsets).reshape(-1)
-        new = _ema(self.centers.view(H * K, d), self.radius.view(-1),
-                   self.mass.view(-1), self.v_cent.view(H * K, d),
-                   self.v_radius.view(-1), keys.reshape(H * n, d),
-                   values.reshape(H * n, d), flat, ema=self.ema, rows=n)
-        for dst, src in zip((self.centers, self.radius, self.mass,
-                             self.v_cent, self.v_radius), new):
-            dst.copy_(src.view(dst.shape))
-        if n:
-            torch.maximum(self.v_max,
-                          torch.linalg.norm(values, dim=-1).amax(dim=1),
-                          out=self.v_max)
+        all heads, in place. One row a head (a decode step's) goes through
+        ``ops.l2_absorb_heads`` (on the card one launch of the absorb
+        kernel; on the CPU ``absorb_plain``), more rows through
+        ``absorb_plain``. ‖c‖² is computed here for the route. Device work
+        only: nothing is read on the host, so a CUDA graph can hold it
+        (``update`` also counts the rows). Returns (H, n) int32 labels."""
+        state = (self.centers, self.v_cent, self.radius, self.v_radius,
+                 self.mass, self.center_valid, self.v_max)
+        csq = torch.sum(self.centers * self.centers, dim=-1)
+        if keys.shape[1] == 1:
+            labels, _ = kops.l2_absorb_heads(keys, values, *state, csq,
+                                             ema=self.ema, decay=self._decay)
+        else:
+            labels, _ = absorb_plain(keys, values, *state, csq, ema=self.ema)
         return labels
 
     def update(self, keys: torch.Tensor, values: torch.Tensor
@@ -557,7 +585,8 @@ def make_layer_step(cfg, layers: dict):
     layer writes its fresh K/V into the raw cache at ``position``
     (refreshes read them), attends through ``ops.flash_centroid_decode``
     over ``layers[layer]``'s state in place with the fresh rows as the
-    exact extra rows, then absorbs them (route + EMA). Nothing is read on
+    exact extra rows, then absorbs them (route + EMA: on the card one
+    launch of the absorb kernel a layer). Nothing is read on
     the host: a CUDA graph of the step replays at any position.
     """
     def step(params, caches, position, tokens):

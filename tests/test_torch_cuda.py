@@ -148,6 +148,30 @@ def test_l2_accumulate_kernel_no_valid_center(cuda_device):
                   * np.abs(x64).sum(0) + 1e-30)
 
 
+@pytest.mark.parametrize("n,k,d", ACC_SHAPES)
+@pytest.mark.parametrize("valid_mode", ["some", "none"])
+def test_l2_accumulate_sums_bit_identical_to_slot_order(cuda_device, n, k, d,
+                                                        valid_mode):
+    """Kernel row 2's sums equal its summation order rebuilt in plain
+    float32 (``ref.distance_argmin_l2_acc_sums_ref``: slot s adds the rows
+    of tiles s, s + slots, ... in row order from 0, then the slots in slot
+    order) bit for bit, so one dropped or doubled row fails; counts
+    exact; with no valid center every row is cluster 0's."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n + k + d)
+    x = torch.randn((n, d), generator=gen, device=cuda_device)
+    c = torch.randn((k, d), generator=gen, device=cuda_device)
+    valid = torch.arange(k, device=cuda_device) % 7 != 3
+    if valid_mode == "none":
+        valid[:] = False
+    labels, d2, sums, cnt = tda.distance_argmin_l2_accumulate(x, c, valid)
+    slots = min(tda.ACC_SLOTS, -(-n // tda.BN))
+    want = tref.distance_argmin_l2_acc_sums_ref(x, labels, k, slots, tda.BN)
+    assert torch.equal(sums, want)
+    assert torch.equal(cnt, torch.bincount(labels.long(), minlength=k).float())
+    if valid_mode == "none":
+        assert not bool(labels.any()) and float(cnt[0]) == n
+
+
 def test_l2_kernel_no_valid_center(cuda_device):
     x = torch.randn(70, 9, device=cuda_device)
     c = torch.randn(5, 9, device=cuda_device)
@@ -673,7 +697,8 @@ def test_clustered_decode_graph_replay_equals_eager_step(cuda_device):
     """A 2-layer smoke LM decoded on the card with the clustered step
     captured as a CUDA graph and replayed, against the same run with the
     step eager: the same perplexity, k* and refreshes; the decode routine
-    counted once a layer a step in both (replays counted)."""
+    and the absorb kernel counted once a layer a step in both (replays
+    counted), the head-batched route not at all."""
     import dataclasses
 
     from repro_torch.kernels import flash_attention as tfa
@@ -686,16 +711,133 @@ def test_clustered_decode_graph_replay_equals_eager_step(cuda_device):
     runs = {}
     for graph in (True, False):
         before = (tfa.flash_centroid_decode.launches,
+                  tda.l2_absorb_heads.launches,
                   tda.distance_argmin_l2_heads.launches)
         runs[graph] = tkv.clustered_decode(
             params, cfg, tok, 80, gcfg=tkv.default_kv_config(16),
             refresh_every=8, cuda_graph=graph)
         assert (tfa.flash_centroid_decode.launches - before[0],
-                tda.distance_argmin_l2_heads.launches - before[1]) == (
-                    cfg.num_layers * 20, cfg.num_layers * 20)
+                tda.l2_absorb_heads.launches - before[1],
+                tda.distance_argmin_l2_heads.launches - before[2]) == (
+                    cfg.num_layers * 20, cfg.num_layers * 20, 0)
     replayed, eager = runs[True], runs[False]
     assert replayed["k_stars"] == eager["k_stars"]
     assert replayed["refreshes"] == eager["refreshes"] == \
         2 * cfg.num_kv_heads * cfg.num_layers
     assert replayed["ppl"] == eager["ppl"]
     assert len(replayed["seconds"]["steps"]) == 20
+
+
+# ---------------------------------------------------------------------------
+# the decode step's absorb: route + EMA of one layer's kv heads, one launch
+# ---------------------------------------------------------------------------
+
+# (kv heads, k_max, d): the decode step's, a ragged k_max with small d, a
+# wide d
+ABSORB_SHAPES = [(8, 64, 64), (2, 33, 32), (4, 128, 128)]
+ABSORB_EMA = 0.1
+ABSORB_STATE = ("centers", "v_cent", "radius", "v_radius", "mass",
+                "center_valid", "v_max")
+
+
+def _absorb_rtol(d):
+    """radius, v_radius and v_max, relative: norms of d float32 squares
+    summed in the kernel's order and in torch's; two sums of d
+    non-negative terms lie within 2(d - 1)·2⁻²⁴ of each other, the square
+    root halves that, and the add rounds once more: (d + 2)·2⁻²⁴."""
+    return (d + 2) * 2.0**-24
+
+
+def _absorb_inputs(dev, H, K, d, dtype, seed):
+    """(keys, values (H, 1, d) views of one projection in ``dtype``, the
+    state by name): dead rows (one at its head's key), a tie on head 0
+    (label 2), a hit on head 1's last row (H > 2), no valid center on the
+    last head (label 0)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    f = dict(generator=gen, device=dev)
+    c, vc = (torch.randn((H, K, d), **f) for _ in range(2))
+    valid = torch.rand((H, K), **f) < 0.8
+    rows = torch.randn((1, 1, 2 * H, d), **f).to(dtype)
+    keys, values = rows[0, :, :H].transpose(0, 1), rows[0, :, H:].transpose(0, 1)
+    c[0, 5] = c[0, 2]
+    valid[0, [2, 5]] = True
+    keys[0, 0] = c[0, 2] + 0.01 * torch.randn((d,), **f)
+    if H > 2:
+        valid[1, K - 1] = True
+        keys[1, 0] = c[1, K - 1] + 0.01 * torch.randn((d,), **f)
+    valid[:, 7] = False
+    c[:, 7] = keys[:, 0].float()
+    valid[H - 1] = False
+    mass = torch.where(valid, torch.randint(1, 600, (H, K), **f).float(), 0.0)
+    state = {"centers": c, "v_cent": vc,
+             "radius": 3 * torch.rand((H, K), **f),
+             "v_radius": 3 * torch.rand((H, K), **f), "mass": mass,
+             "center_valid": valid, "v_max": 4 * torch.rand((H,), **f)}
+    return keys, values, state
+
+
+@pytest.mark.parametrize("H,K,d", ABSORB_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_absorb_kernel_matches_route_and_plain_ema(cuda_device, H, K, d,
+                                                   dtype):
+    """One absorb launch: labels and d² equal the head-batched route's bit
+    for bit (ties to the first index, a dead row at the key skipped, label
+    0 without a valid center); centers, v_cent and mass equal the plain
+    EMA's on the card bit for bit (``kv_cluster.absorb_plain`` on a copy
+    of the state); radius, v_radius and v_max within ``_absorb_rtol``."""
+    from repro_torch.serve import kv_cluster as tkv
+    keys, values, state = _absorb_inputs(cuda_device, H, K, d, dtype,
+                                          H * K + d)
+    fused = {n: t.clone() for n, t in state.items()}
+    plain = {n: t.clone() for n, t in state.items()}
+    c = state["centers"]
+    csq = torch.sum(c * c, dim=-1)
+    decay = torch.pow(1.0 - ABSORB_EMA, torch.ones((1,), device=cuda_device))
+    before = tda.l2_absorb_heads.launches
+    lab, d2 = tda.l2_absorb_heads(keys, values,
+                                  *(fused[n] for n in ABSORB_STATE), csq,
+                                  decay)
+    torch.cuda.synchronize()
+    assert tda.l2_absorb_heads.launches == before + 1
+    assert lab.shape == d2.shape == (H, 1)
+    hl, hd = tda.distance_argmin_l2_heads(keys.float(), c, csq,
+                                          state["center_valid"])
+    assert torch.equal(lab, hl) and torch.equal(d2, hd)
+    assert int(lab[0, 0]) == 2 and int(lab[H - 1, 0]) == 0
+    if H > 2:
+        assert int(lab[1, 0]) == K - 1
+    pl, _ = tkv.absorb_plain(keys, values, *(plain[n] for n in ABSORB_STATE),
+                             csq, ema=ABSORB_EMA)
+    assert torch.equal(pl, lab)
+    for n in ("centers", "v_cent", "mass", "center_valid"):
+        assert torch.equal(fused[n], plain[n]), n
+    for n in ("radius", "v_radius", "v_max"):
+        rel = (fused[n] - plain[n]).abs() / plain[n].abs().clamp(min=1e-30)
+        assert float(rel.max()) <= _absorb_rtol(d), n
+
+
+def test_absorb_graph_replay_equals_eager(cuda_device):
+    """``LayerKVCluster.absorb`` of one row a head captured in a CUDA graph
+    (``kv_cluster._Replay``: one eager call, the capture) and replayed
+    once, against two eager calls on a copy of the state: the same bits;
+    the replay counted as one launch."""
+    from repro_torch.serve import kv_cluster as tkv
+    keys, values, state = _absorb_inputs(cuda_device, 8, 64, 64,
+                                         torch.bfloat16, 5)
+    layers = []
+    for _ in range(2):
+        lay = tkv.LayerKVCluster(8, 64, tkv.default_kv_config(64),
+                                 ema=ABSORB_EMA, device=cuda_device)
+        for n in ABSORB_STATE:
+            getattr(lay, n).copy_(state[n])
+        layers.append(lay)
+    eager, graphed = layers
+    want = [eager.absorb(keys, values) for _ in range(2)][-1]
+    replay = tkv._Replay(lambda: graphed.absorb(keys, values))
+    before = tda.l2_absorb_heads.launches
+    got = replay()
+    torch.cuda.synchronize()
+    assert tda.l2_absorb_heads.launches == before + 1
+    assert torch.equal(got, want)
+    for n in ABSORB_STATE:
+        assert torch.equal(getattr(graphed, n), getattr(eager, n)), n

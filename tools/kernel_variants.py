@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """What holds a hand-written kernel back: variants of its source, timed.
 
-    python tools/kernel_variants.py [--kernel flash|l2|all]
+    python tools/kernel_variants.py [--kernel flash|l2|acc|all]
+        [--against DIR]
 
 Each variant is the committed source (``src/repro_torch/kernels/csrc``)
 with one string edit, compiled by ``nvcc`` with the build's own flags
@@ -23,6 +24,17 @@ inputs:
   valid. Variants: the chunk's dot loop fully unrolled, 32-dim chunks,
   and 256-thread blocks with 8 × 4 or 4 × 8 register tiles. ``x @ c.T``
   is timed beside them.
+- ``acc``: ``distance_argmin_l2_accumulate`` at (1,000,000, 1,024, 128)
+  float32 with the first 106 and 158 centers valid (the table-sync fit's
+  layout), and ``distance_argmin_l2`` beside it; each variant prints the
+  blocks an SM holds. Variants: one column a thread instead of four, 4 or
+  16 groups' slot values loaded at once instead of 8, the tile routine
+  inlined, rows read from device memory instead of shared memory; and,
+  to split the time of the sums, without the slot loads and stores,
+  without the row adds, without either, and without the sort too. With ``--against DIR`` (another
+  checkout, e.g. an earlier commit unpacked), its source and its wrapper
+  run beside the committed one, in the order other, committed, committed,
+  other, and every output of the two is held equal bit for bit.
 
 Variants that drop work are for timing only: they break the function.
 Needs the card and ``nvcc``; the variants' libraries go to a temporary
@@ -30,6 +42,7 @@ directory that is removed at exit.
 """
 import argparse
 import ctypes
+import importlib.util
 import os
 import subprocess
 import sys
@@ -59,6 +72,29 @@ constexpr int TN = 8;                   // centers per thread: tx + 8 j
 constexpr int LANES = 8;                // threads that share a row
 constexpr int THREADS = 128;"""
 L2_UNROLL = "#pragma unroll 2\n      for (int dd = 0; dd < BD; dd += 4) {"
+
+
+ACC_KERNELS = ("l2_argmin_acc_kernel", "sum_slots_kernel")
+ACC_ADDS = """    if (quads)
+      add_groups<float4>(src, rs, ps, d, ng, gkey, gstart, gend, srow);
+    else
+      add_groups<float>(src, rs, ps, d, ng, gkey, gstart, gend, srow);
+"""
+ACC_SORT = ("    const int lab = tile_lab[tid];",
+            "    const float* src = from_smem ? xs : x + row0 * d;",
+            "    const int ng = 0;\n")
+#: appended to the accumulating variants: blocks an SM holds, through the
+#: committed host code's own shared-memory sizing
+ACC_OCCUPANCY = """
+extern "C" int repro_acc_occupancy(int d, int k) {
+  const auto kern = l2_argmin_acc_kernel<true>;
+  size_t bytes;
+  if (prepare(kern, true, d, k, &bytes, k) != cudaSuccess) return -1;
+  int blocks = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, THREADS, bytes);
+  return blocks;
+}
+"""
 
 
 def edit(src, *change):
@@ -104,6 +140,31 @@ VARIANTS = {
         "8 x 4 tile, 256 threads": [l2_tile(8, 4, 16, 256)],
         "4 x 8 tile, 256 threads": [l2_tile(4, 8, 8, 256)],
     }),
+    "acc": ("distance_argmin", {
+        "as committed (four columns a thread, 8 groups at once)": [],
+        "one column a thread": [("    if (quads)\n", "    if (false)\n")],
+        "4 groups at once": [("constexpr int GB = 8;",
+                              "constexpr int GB = 4;")],
+        "16 groups at once": [("constexpr int GB = 8;",
+                               "constexpr int GB = 16;")],
+        "slot values neither loaded nor stored (timing only)": [
+            ("          acc[b] = reinterpret_cast<const T*>(ps + (size_t)gkey[gb] "
+             "* d)[cv];", "          acc[b] = T();"),
+            ("          reinterpret_cast<T*>(ps + (size_t)gkey[gb] * d)[cv] = "
+             "acc[b];", "          reinterpret_cast<T*>(ps)[cv] = acc[b];")],
+        "slot values loaded and stored, no row adds (timing only)": [
+            ("            add_to(acc[b], reinterpret_cast<const T*>(src + "
+             "srow[i] * rs)[cv]);", "            ;")],
+        "tile routine inlined": [
+            ("    l2_argmin_tile_call<RES>(smem, x, c, csq, valid, n, k, d, "
+             "row0, labels,", "    l2_argmin_tile<RES>(smem, x, c, csq, "
+             "valid, n, k, d, row0, labels,")],
+        "rows read from device memory": [
+            ("  const bool from_smem = RES && any_valid;",
+             "  const bool from_smem = false;")],
+        "no group adds (timing only)": [(ACC_ADDS, "")],
+        "no sort, no adds (timing only)": [ACC_SORT, (ACC_ADDS, "")],
+    }),
 }
 
 
@@ -118,6 +179,8 @@ def compile_all(which, tmp):
             src = text
             for change in edits:
                 src = edit(src, *change)
+            if kernel == "acc":
+                src += ACC_OCCUPANCY
             cu = os.path.join(tmp, f"{kernel}{i}.cu")
             with open(cu, "w") as f:
                 f.write(src)
@@ -130,8 +193,9 @@ def compile_all(which, tmp):
         out, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {key}:\n{out}")
-        entry = ("flash_attention_bf16_kernelILi64" if key[0] == "flash"
-                 else "l2_argmin_kernelILb1")
+        entry = {"flash": "flash_attention_bf16_kernelILi64",
+                 "l2": "l2_argmin_kernelILb1",
+                 "acc": "l2_argmin_acc_kernelILb1"}[key[0]]
         lines = out.splitlines()
         regs = next((f"{lines[i + 3].split(':')[-1].strip()}; "
                      f"{lines[i + 2].strip()}"
@@ -142,7 +206,10 @@ def compile_all(which, tmp):
 
 
 def device_ms(fn, iters, match):
+    """Device ms a call in the kernels whose name holds ``match`` (a
+    string, or a tuple of strings any of which may match)."""
     from torch.profiler import ProfilerActivity, profile
+    match = match if isinstance(match, tuple) else (match,)
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -150,7 +217,7 @@ def device_ms(fn, iters, match):
             fn()
         torch.cuda.synchronize()
     return sum(e.self_device_time_total for e in prof.key_averages()
-               if match in e.key) / iters / 1e3
+               if any(m in e.key for m in match)) / iters / 1e3
 
 
 def worst_ratio(cases):
@@ -220,14 +287,89 @@ def run_l2(libs, dev):
           f"{device_ms(lambda: x @ c.T, 10, ''):.4f} ms")
 
 
+def other_accumulate(root, tmp):
+    """``distance_argmin_l2_accumulate`` of the checkout at ``root``: its
+    wrapper module, bound to a library compiled from its own source."""
+    lib = os.path.join(tmp, "other_distance_argmin.so")
+    src = os.path.join(root, "src", "repro_torch", "kernels", "csrc",
+                       "distance_argmin.cu")
+    out = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", lib, src],
+                         capture_output=True, text=True)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src}:\n{out.stdout}"
+                           f"{out.stderr}")
+    spec = importlib.util.spec_from_file_location(
+        "other_distance_argmin",
+        os.path.join(root, "src", "repro_torch", "kernels",
+                     "distance_argmin.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    fn = ctypes.CDLL(lib).repro_l2_argmin_acc_f32
+    fn.argtypes, fn.restype = mod._ACC_ARGTYPES, ctypes.c_int
+    mod._acc_entry = lambda: fn
+    return mod.distance_argmin_l2_accumulate
+
+
+def run_acc(libs, dev, against, tmp):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((1_000_000, 128), generator=gen, device=dev)
+    c = x[torch.randperm(1_000_000, generator=gen, device=dev)[:1024]]
+    valid = {kv: torch.arange(1024, device=dev) < kv for kv in (106, 158)}
+    print("distance_argmin_l2_accumulate at (1000000,1024,128), device ms "
+          "with 106 / 158 valid (kernel and slot sums):")
+    entry = da._acc_entry
+    try:
+        for (kernel, name), lib in libs.items():
+            if kernel != "acc":
+                continue
+            so = ctypes.CDLL(lib)
+            fn = so.repro_l2_argmin_acc_f32
+            fn.argtypes, fn.restype = da._ACC_ARGTYPES, ctypes.c_int
+            da._acc_entry = lambda fn=fn: fn
+            ms = [device_ms(lambda v=v: da.distance_argmin_l2_accumulate(
+                x, c, v), 10, ACC_KERNELS) for v in valid.values()]
+            print(f"  {name}: {ms[0]:.4f} / {ms[1]:.4f} ms; "
+                  f"{so.repro_acc_occupancy(128, 1024)} blocks an SM",
+                  flush=True)
+    finally:
+        da._acc_entry = entry
+    ms = [device_ms(lambda v=v: da.distance_argmin_l2(x, c, v), 10,
+                    "l2_argmin") for v in valid.values()]
+    print(f"  distance_argmin_l2 on the same inputs: {ms[0]:.4f} / "
+          f"{ms[1]:.4f} ms")
+    if against is None:
+        return
+    other = other_accumulate(against, tmp)
+    ours = da.distance_argmin_l2_accumulate
+    for kv, v in valid.items():
+        a, b = other(x, c, v), ours(x, c, v)
+        same = all(torch.equal(p, q) for p, q in zip(a, b))
+        times = {}
+        for who, fn in (("other", other), ("committed", ours),
+                        ("committed", ours), ("other", other)):
+            times.setdefault(who, []).append(device_ms(
+                lambda fn=fn: fn(x, c, v), 10, ACC_KERNELS))
+        print(f"  {kv} valid: {against} {times['other']} ms, committed "
+              f"{times['committed']} ms (other, committed, committed, "
+              f"other); labels, d², sums and counts bit-identical: {same}",
+              flush=True)
+        if not same:
+            raise AssertionError("the two checkouts' outputs differ")
+
+
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--kernel", choices=("flash", "l2", "all"), default="all")
+    ap.add_argument("--kernel", choices=("flash", "l2", "acc", "all"),
+                    default="all")
+    ap.add_argument("--against", default=None,
+                    help="another checkout whose accumulating kernel runs "
+                         "beside the committed one (--kernel acc)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_variants: needs a CUDA device", file=sys.stderr)
         return 1
-    which = ("flash", "l2") if args.kernel == "all" else (args.kernel,)
+    which = ("flash", "l2", "acc") if args.kernel == "all" \
+        else (args.kernel,)
     dev = torch.device("cuda")
     with tempfile.TemporaryDirectory() as tmp:
         libs = compile_all(which, tmp)
@@ -235,6 +377,8 @@ def main():
             run_flash(libs, dev)
         if "l2" in which:
             run_l2(libs, dev)
+        if "acc" in which:
+            run_acc(libs, dev, args.against, tmp)
     return 0
 
 

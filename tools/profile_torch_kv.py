@@ -8,8 +8,8 @@
 Runs ``chip_smoke.py``'s phase-11 path: the architecture at full width
 with weights drawn from seed 0, one sequence of random tokens, the
 prefill, one ``LayerKVCluster`` per layer (a fit per kv head), the decode
-steps (clustered attention on the decode routine, then the head-batched
-route and one EMA per layer), and a refresh every ``--refresh-every``
+steps (clustered attention on the decode routine, then one launch of the
+absorb kernel a layer: route + EMA), and a refresh every ``--refresh-every``
 steps. A short decode warms up (kernel builds, library handles). Then
 four runs:
 
@@ -22,18 +22,21 @@ four runs:
    wrapped by a synchronized host clock, nested stages inside their
    parents: the prefill's attention (the flash-attention kernel), the
    fits, and per decode step the model step, the centroid attention (the
-   decode routine), and each layer's ``absorb`` split into the route (the
-   head-batched L2 kernel) and the EMA;
+   decode routine), and each layer's ``absorb`` (the absorb kernel; with
+   ``--swap-kernels``' unfused absorb, the route and the EMA apart);
 4. under ``torch.profiler`` (card only), a few decode steps replayed: the
    device's busy share of the whole run and of the decode steps alone
    (the first, which captures, left out), and the device time by kernel.
 
-``--swap-kernels`` runs instead, eagerly, the run of 2 and the same run
-with the step's two kernels swapped for the calls the per-head step made
-before the layer state: the (B, S) centroid-attention kernel over a
-snapshot in place of the decode kernel, one L2 launch a head in place of
-the head-batched one, and both; it prints each run's perplexity and
-mean k*, so that a change of the perplexity can be put down to a kernel.
+``--swap-kernels`` runs instead the run of 1 (the step replayed) and the
+same run with the step's kernels swapped: the absorb kernel for the
+unfused absorb (the head-batched route kernel, then the plain EMA); the
+decode kernel for the (B, S) centroid-attention kernel over a snapshot;
+and both, with one L2 launch a head in place of the head-batched route
+(the per-head step's calls). It prints each run's perplexity, mean k*
+and decode step mean and median, so that one call gives the fused and
+the unfused step and a change of the perplexity can be put down to a
+kernel.
 
 ``--device cpu`` rehearses the script on the architecture's smoke config
 (``--prompt 128 --decode 40 --k-max 16`` unless given); its times are the
@@ -89,9 +92,10 @@ def timed_stages(dev):
     wrap(kv.kops, "flash_centroid_decode",
          "- centroid attention (decode routine)")
     wrap(kv.LayerKVCluster, "absorb", "- absorb, per layer: route + EMA")
+    wrap(kv.kops, "l2_absorb_heads", "-- absorb kernel")
     wrap(kv.kops, "distance_argmin_l2_heads",
-         "-- route (head-batched L2 kernel)")
-    wrap(kv, "_ema", "-- EMA, all heads of the layer")
+         "-- route (head-batched L2 kernel; unfused only)")
+    wrap(kv, "_ema", "-- EMA, all heads of the layer (unfused only)")
 
     def undo():
         for owner, name, fn in reversed(patched):
@@ -101,12 +105,15 @@ def timed_stages(dev):
 
 
 def swap_kernels(which):
-    """Swap the step's kernels (``which`` holds "attention" and/or
-    "route") for the calls the per-head step made: ``clustered_attention``
-    over a snapshot with ``head_state``'s log-mass (the (B, S) kernel), and
-    one ``distance_argmin_l2`` a head (‖c‖² computed per head in its
-    wrapper). Returns undo."""
-    saved = (kv.kops.flash_centroid_decode, kv.kops.distance_argmin_l2_heads)
+    """Swap the step's kernels: with "absorb" in ``which`` the absorb
+    kernel for ``kv_cluster.absorb_plain`` (the head-batched route, then
+    the plain EMA); with "attention" the decode kernel for
+    ``clustered_attention`` over a snapshot with ``head_state``'s log-mass
+    (the (B, S) kernel); with "route" the head-batched route for one
+    ``distance_argmin_l2`` a head (‖c‖² computed per head in its wrapper).
+    Returns undo."""
+    saved = (kv.kops.flash_centroid_decode, kv.kops.distance_argmin_l2_heads,
+             kv.kops.l2_absorb_heads)
 
     def attention(q, centers, v_cent, mass, valid, extra_k=None,
                   extra_v=None):
@@ -120,14 +127,19 @@ def swap_kernels(which):
                 for h in range(x.shape[0])]
         return tuple(torch.stack(parts) for parts in zip(*outs))
 
+    def absorb(keys, values, *state, ema, decay):
+        return kv.absorb_plain(keys, values, *state, ema=ema)
+
     if "attention" in which:
         kv.kops.flash_centroid_decode = attention
     if "route" in which:
         kv.kops.distance_argmin_l2_heads = route
+    if "absorb" in which:
+        kv.kops.l2_absorb_heads = absorb
 
     def undo():
-        kv.kops.flash_centroid_decode, kv.kops.distance_argmin_l2_heads = \
-            saved
+        (kv.kops.flash_centroid_decode, kv.kops.distance_argmin_l2_heads,
+         kv.kops.l2_absorb_heads) = saved
     return undo
 
 
@@ -169,16 +181,20 @@ def main():
           f"{cfg.num_kv_heads} kv heads, prompt {prompt}, {decode} decoded, "
           f"k_max {k_max}, refresh every {args.refresh_every}")
     if args.swap_kernels:
-        for which in ((), ("attention",), ("route",), ("attention", "route")):
+        for which in ((), ("absorb",), ("attention",),
+                      ("attention", "absorb", "route")):
             undo = swap_kernels(which)
             try:
-                out = run(decode, graph=False)
+                out = run(decode)
             finally:
                 undo()
-            print(f"eager, swapped for the per-head calls: "
+            steps = torch.tensor(out["seconds"]["steps"][1:]) * 1e3
+            print(f"{'replayed' if full else 'eager'}, swapped: "
                   f"{', '.join(which) or 'nothing'}: ppl {out['ppl']:.6f}, "
                   f"mean k* {out['mean_k_star']:.2f}, k* per head "
-                  f"{sum(out['k_stars'])} in all")
+                  f"{sum(out['k_stars'])} in all; decode step (after the "
+                  f"first) mean {float(steps.mean()):.3f} ms, median "
+                  f"{float(steps.median()):.3f} ms")
         return 0
     for graph in (True, False):
         sync(dev)
