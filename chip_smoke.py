@@ -72,19 +72,39 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 # 32-bit integer add/logic/shift/compare per clock per SM, and __popc
 # (CUDA C++ Programming Guide, throughput table, compute capability 9.0);
-# times the SM count and the SM clock read from the card
+# times the SM count and the SM clock read from the card. Integer
+# multiply-adds (IMAD, IMAD.HI) issue on the FMA pipe, also 64 a clock
+# per SM: an add or a shift by a constant can go there as a multiply-add
+# by a value the compiler does not see (tools/kernel_variants.py, --kernel
+# packed, variants (e*)), so the FMA pipe's time uses the same rate.
 INT32_PER_CLK, POPC_PER_CLK = 64, 16
-# The fewest of those a Hamming function needs: per field width b, the
-# 32-bit integer ops and __popc per packed word to count the non-zero
-# b-bit fields of z = a ^ c into a row's total, each op counted once and
-# three-input logic as one LOP3. b = 1: xor, add (+ popc); b = 2: xor,
-# shift, LOP3 ((z | z >> 1) & lsb), add (+ popc); b = 4-16: the SWAR zero
-# test t = (z & low) + low, LOP3 ((t | z) & high), i.e. xor, and, add,
-# LOP3, add (+ popc); b = 32: xor, compare, add. The equality function
-# needs a compare and an add per column. Both keep a running minimum: a
-# compare and a select per (row, center).
-PACKED_OPS = {1: (2, 1), 2: (4, 1), 4: (5, 1), 8: (5, 1), 16: (5, 1),
-              32: (3, 0)}
+# The least ops a word a packed Hamming function needs, by pipe: (integer
+# pipe: logic, compares; FMA pipe: adds and shift-adds; __popc), taken
+# over the op mixes shown bit-exact at every width, three-input logic as
+# one LOP3. b = 1: xor; the count's add; a popc (the count itself).
+# b = 2-16: the SWAR field test's xor, and, or-and ((t | z) & high) on
+# the integer pipe; t = (z & low) + low, the count's adds and, for one
+# pair of every 4 words, the odd word's flags moved down a bit
+# (IMAD.HI) onto the even word's, so 3 popc for 4 words: 3 + 2 + 0.75,
+# which puts the popc pipe (0.75 / 16) level with the integer pipe
+# (3 / 64) (variant (e1i), bit-exact at every width; more pairs or more
+# shifted words only move work between pipes that are not the limit).
+# b = 32: a compare and a predicated add. The equality function needs the
+# same per column. Both keep a running minimum: a compare and a select
+# per (row, center), on the integer pipe.
+PACKED_OPS = {1: (1, 1, 1), 2: (3, 2, 0.75), 4: (3, 2, 0.75),
+              8: (3, 2, 0.75), 16: (3, 2, 0.75), 32: (1, 1, 0)}
+EQUALITY_OPS = (1, 1)
+
+
+def hamming_op_times(pairs, words, ops, int_rate, popc_rate):
+    """Seconds of each pipe for ``pairs`` (row, valid center) pairs of
+    ``words`` columns at ``ops`` = (integer, FMA, popc) a column, plus the
+    running minimum's compare and select a pair on the integer pipe."""
+    ints, fmas, popcs = (*ops, 0)[:3]
+    return [pairs * (words * ints + 2) / int_rate,
+            pairs * words * fmas / int_rate,
+            pairs * words * popcs / popc_rate]
 
 N_FIT, N_FRESH, D, K_TRUE = 1_000_000, 65_536, 128, 64
 L2_SHAPES = [(64, 8, 16), (130, 33, 70), (257, 128, 128), (100, 5, 960)]
@@ -189,17 +209,37 @@ def cuda_ms(fn, iters):
 
 def device_ms(fn, iters, match=""):
     """Device time (ms) per call of ``fn`` spent in kernels whose name
-    contains ``match`` (all kernels for ""), from ``torch.profiler`` over
-    ``iters`` calls after one warm-up call: no host time in it."""
-    from torch.profiler import ProfilerActivity, profile
+    contains ``match`` (a string, or a tuple of strings any of which may
+    match; all kernels for ""), from ``torch.profiler`` over ``iters``
+    calls after one warm-up call: no host time in it. The profiler's
+    tracing starts late: a trace begun just before a short loop can miss
+    most of its launches, or all of them. So the calls are traced in a
+    second step of the profiler's schedule, after a warm-up step of
+    ``iters`` calls whose trace is dropped; and each kernel's time is its
+    mean over the events the trace holds of it, times its launches a
+    call (its events over ``iters``, rounded, at least 1)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    names = match if isinstance(match, tuple) else (match,)
+    traced = []
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if match in e.key) / iters / 1e3
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: traced.extend(p.key_averages())
+                 ) as prof:
+        for _ in range(2):
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    total = 0.0
+    for e in traced:
+        if any(m in e.key for m in names) and e.self_device_time_total > 0:
+            per_call = max(1, round(e.count / iters))
+            total += e.self_device_time_total / e.count * per_call
+    if total == 0.0:
+        raise AssertionError(f"no kernel named like {match!r} was traced")
+    return total / 1e3
 
 
 def l2_agreement(x, c, valid, kernel, plain):
@@ -326,21 +366,6 @@ def bound(nbytes, op_times):
     t_bytes, t_ops = nbytes / PEAK_BYTES, max(op_times)
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
         else "operations"
-
-
-def sass_counts(lib, function, opcodes):
-    """{opcode: count} in the SASS of the kernels of ``lib`` whose name
-    contains ``function`` (``cuobjdump -sass``, beside ``nvcc``)."""
-    from repro_torch.kernels import build
-    exe = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
-    sass = subprocess.run([exe, "-sass", str(lib)], capture_output=True,
-                          text=True, timeout=300, check=True).stdout
-    counts = dict.fromkeys(opcodes, 0)
-    for part in sass.split("Function : ")[1:]:
-        if function in part.split("\n", 1)[0]:
-            for op in opcodes:
-                counts[op] += part.count(f" {op}")
-    return counts
 
 
 def reset_launches(*kernels):
@@ -1356,8 +1381,8 @@ def main():
                 print(f"  ptxas {name}: {line.strip()}")
     # the bf16 flash routine runs its products on the tensor cores (HMMA)
     # and stages K and V by cp.async (LDGSTS)
-    sass = sass_counts(build.library_path("flash_attention"),
-                       "flash_attention_bf16_kernel", ("HMMA", "LDGSTS"))
+    sass = build.sass_counts(build.library_path("flash_attention"),
+                             "flash_attention_bf16_kernel", ("HMMA", "LDGSTS"))
     print(f"  SASS of flash_attention_bf16_kernel (dh 32, 64, 128): {sass}")
     if not (sass["HMMA"] and sass["LDGSTS"]):
         raise AssertionError("the bf16 flash kernel has no HMMA or LDGSTS")
@@ -1520,6 +1545,7 @@ def run_paths(rt, dev, gen, card, int_rate, popc_rate, data, x_fit, x_new,
     beside them), then the kernels line and the last line."""
     from repro_torch.core import assign
     from repro_torch.data.synthetic import geonames_like, url_like
+    from repro_torch.kernels import build
     from repro_torch.kernels import distance_argmin as da
     from repro_torch.kernels import distance_argmin_hamming as dh
     from repro_torch.kernels import minhash_buckets as mh
@@ -1705,17 +1731,36 @@ def run_paths(rt, dev, gen, card, int_rate, popc_rate, data, x_fit, x_new,
                 f"equality ({n},{k},{d}) {mode} valid"))
         print(f"  equality ({n},{k},{d}, card {card_}): bit-exact, with and "
               "without valid centers")
-    for n, k, d, bits in PACKED_SHAPES:
-        hi = 2**32 if bits == 32 else 1 << bits
-        codes = torch.randint(0, hi, (n, d), generator=gen, device=dev)
-        cen = torch.randint(0, hi, (k, d), generator=gen, device=dev)
-        codes[::3] = cen[0]
-        codes[1] = hi - 1
+
+    def packed_inputs():
+        """(what, codes, centers, valid, bits): the random sweep, whose
+        counts are also held to the equality kernel's plain version, then
+        the edge cases."""
+        for n, k, d, bits in PACKED_SHAPES:
+            hi = 2**32 if bits == 32 else 1 << bits
+            codes = torch.randint(0, hi, (n, d), generator=gen, device=dev)
+            cen = torch.randint(0, hi, (k, d), generator=gen, device=dev)
+            codes[::3] = cen[0]
+            codes[1] = hi - 1
+            yield (f"({n},{k},{d})", codes, cen,
+                   torch.arange(k, device=dev) % 7 != 3, bits)
+        # a generator of their own: the later phases draw from ``gen`` what
+        # they drew before these cases were added
+        case_gen = torch.Generator(device=dev).manual_seed(6)
+        for case in pack.PACKED_CASES:
+            for bits in pack.SUPPORTED_BITS:
+                codes, cen, valid = pack.packed_case(case, bits, 3_000,
+                                                     case_gen)
+                yield (f"{case} ({codes.shape[0]},{cen.shape[0]},"
+                       f"{codes.shape[1]})", codes, cen, valid, bits)
+
+    for what, codes, cen, some, bits in packed_inputs():
+        (n, d), k = codes.shape, cen.shape[0]
         xp, cp = pack.pack_codes(codes, bits), pack.pack_codes(cen, bits)
         if d * bits >= 32 and int(xp.min()) >= 0:
             raise AssertionError("no packed word has its top bit set")
         for mode in ("some", "none"):
-            valid = (torch.arange(k, device=dev) % 7 != 3) if mode == "some" \
+            valid = some if mode == "some" \
                 else torch.zeros(k, dtype=torch.bool, device=dev)
             for dd in (d, None):
                 plain = ref.distance_argmin_hamming_packed_ref(
@@ -1723,13 +1768,14 @@ def run_paths(rt, dev, gen, card, int_rate, popc_rate, data, x_fit, x_new,
                 packed_err = max(packed_err, ham_exact(
                     dh.distance_argmin_hamming_packed(xp, cp, valid, bits=bits,
                                                       d=dd), plain,
-                    f"packed ({n},{k},{d}) {bits} bits {mode} valid"))
-            eq = ref.distance_argmin_hamming_ref(codes, cen, valid)
-            ham_exact(dh.distance_argmin_hamming_packed(xp, cp, valid,
-                                                        bits=bits, d=d), eq,
-                      f"packed vs equality ({n},{k},{d}) {bits} bits")
-        print(f"  packed ({n},{k},{d}, {bits} bits): bit-exact, with and "
-              "without valid centers")
+                    f"packed {what} {bits} bits {mode} valid"))
+            if what.startswith("("):
+                eq = ref.distance_argmin_hamming_ref(codes, cen, valid)
+                ham_exact(dh.distance_argmin_hamming_packed(
+                    xp, cp, valid, bits=bits, d=d), eq,
+                    f"packed vs equality {what} {bits} bits")
+        print(f"  packed {what}, {xp.shape[1]} words of {bits}-bit fields: "
+              "bit-exact, with and without valid centers")
 
     phase(f"7 heterogeneous main path: fit + predict at {N_HET:,} x (5 + 4)")
     het_cfg = rt.GeekConfig(pair_cap=1 << 24)
@@ -1754,10 +1800,11 @@ def run_paths(rt, dev, gen, card, int_rate, popc_rate, data, x_fit, x_new,
     eq_lib_ms = cuda_ms(lambda: torch.cdist(codes.float(), cen.float(), p=0),
                         3)
     kv, (n_, d_) = int(cv.sum()), codes.shape
-    # per (row, valid center): d compares + d adds and the running min
-    # (PACKED_OPS); each input read once, labels and counts written
-    eq_bound, eq_by = bound(4.0 * (n_ * d_ + cen.numel() + cv.numel() + 2 * n_),
-                            [n_ * kv * (2 * d_ + 2) / int_rate])
+    # per (row, valid center): d compares, d adds and the running min
+    # (EQUALITY_OPS); each input read once, labels and counts written
+    eq_bound, eq_by = bound(
+        4.0 * (n_ * d_ + cen.numel() + cv.numel() + 2 * n_),
+        hamming_op_times(n_ * kv, d_, EQUALITY_OPS, int_rate, popc_rate))
     print(f"  equality kernel at ({n_},{cen.shape[0]},{d_}), {kv} valid: "
           f"bit-exact vs plain; kernel {eq_ms:.3f} ms, plain (blocked) "
           f"{eq_plain_ms:.3f} ms, cdist(p=0) {eq_lib_ms:.3f} ms, bound "
@@ -1793,20 +1840,28 @@ def run_paths(rt, dev, gen, card, int_rate, popc_rate, data, x_fit, x_new,
         "packed at the main path"))
     pk_ms = cuda_ms(lambda: dh.distance_argmin_hamming_packed(
         xp, pcen, cv, bits=bits, d=d_), 10)
+    pk_dev_ms = device_ms(lambda: dh.distance_argmin_hamming_packed(
+        xp, pcen, cv, bits=bits, d=d_), 10, "Packed")
     pk_plain_ms = cuda_ms(lambda: assign.assign_hamming_packed(
         xp, pcen, cv, bits=bits, d=d_), 1)
     kv, (n_, w_) = int(cv.sum()), xp.shape
-    int_ops, popcs = PACKED_OPS[bits]
-    # per (row, valid center): w words at the fewest ops and __popc a word
-    # needs, plus the running min; each input read once, outputs written
+    # per (row, valid center): w words at the fewest ops a word needs, by
+    # pipe (PACKED_OPS), plus the running min; each input read once,
+    # labels and counts written
     pk_bound, pk_by = bound(
         4.0 * (n_ * w_ + pcen.numel() + cv.numel() + 2 * n_),
-        [n_ * kv * (w_ * int_ops + 2) / int_rate,
-         n_ * kv * w_ * popcs / popc_rate])
+        hamming_op_times(n_ * kv, w_, PACKED_OPS[bits], int_rate, popc_rate))
     print(f"  packed kernel at ({n_},{pcen.shape[0]},{w_} words of {bits}-bit "
-          f"fields), {kv} valid: bit-exact vs plain; kernel {pk_ms:.3f} ms, "
-          f"plain (blocked) {pk_plain_ms:.3f} ms, bound {pk_bound:.3f} ms "
-          f"({pk_by}); no single library call computes it")
+          f"fields), {kv} valid: bit-exact vs plain; kernel {pk_ms:.4f} ms "
+          f"(device {pk_dev_ms:.4f}), plain (blocked) {pk_plain_ms:.3f} ms, "
+          f"bound {pk_bound:.4f} ms ({pk_by}): {pk_bound / pk_ms:.1%} of it "
+          f"({pk_bound / pk_dev_ms:.1%} by device time), {card}; no single "
+          "library call computes it")
+    print("  SASS of the packed kernel at 16-bit fields, 32-word chunks: "
+          + str(build.sass_counts(build.library_path("distance_argmin_hamming"),
+                            "PackedILi16EEELi32E",
+                            ("LOP3", "IADD3", "VIADD", "IMAD", "SHF", "POPC",
+                             "LEA"))))
     del xp
     url_sh_launch, url_sh_s = sharded_check(
         "sparse", url_est, url_fit, url_model, url_est.result_,

@@ -94,3 +94,17 @@ def check(err: int, what: str) -> None:
     """Raise when a C entry returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def sass_counts(lib, function: str, opcodes) -> dict:
+    """{opcode: count} in the SASS of the kernels of the library ``lib``
+    whose mangled name contains ``function`` (``cuobjdump -sass``, beside
+    ``nvcc``); raises when no kernel matches."""
+    exe = os.path.join(os.path.dirname(nvcc()), "cuobjdump")
+    sass = subprocess.run([exe, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    parts = [p for p in sass.split("Function : ")[1:]
+             if function in p.split("\n", 1)[0]]
+    if not parts:
+        raise RuntimeError(f"no kernel named like {function} in {lib}")
+    return {op: sum(p.count(f" {op}") for p in parts) for op in opcodes}

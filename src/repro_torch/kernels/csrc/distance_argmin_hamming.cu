@@ -7,21 +7,37 @@
 // centers of the number of mismatching attributes, and that number:
 //   equality: codes (n, d) int32 vs centers (k, d) int32, d - #equal;
 //   packed:   words (n, w) uint32 vs centers (k, w) uint32, each word
-//             holding 32/BITS fields of BITS bits: XOR, OR-fold every
-//             field onto its lowest bit, mask with the field-LSB
-//             constant, __popc, summed over the words.
+//             holding 32/BITS fields of BITS bits: z = a ^ c, then the
+//             SWAR field test v = (((z & low) + low) | z) & high, where
+//             `high` holds each field's top bit and low = ~high. The top
+//             bit of a field of v is set iff that field of z is not zero,
+//             every other bit of v is clear, and __popc(v) counts the
+//             word's mismatching fields (BITS = 1: __popc(z); 32: z != 0).
 // The contract is the reference's main path (repro/core/assign.py
 // assign_hamming, assign_hamming_packed): an invalid center counts `big`
 // (d + 1, or INT32_MAX for the packed form without d), so a row with no
 // valid center gets label 0 and count `big`; ties go to the lowest
 // center index. Counts are exact integers: no -1/-2 pad sentinels are
-// subtracted back out, as the TPU kernel had to.
+// subtracted back out, as the TPU kernel had to, and the field test
+// counts what the reference's OR-fold (repro/kernels/pack.py) counts,
+// word for word.
 //
 // Bound on this card: operations. At the main paths' shapes (2M x 1024
 // centers x 9 codes; 2.4M x 1024 x 32 words) every input byte is read
-// once while each (row, center) pair costs d compare-adds or w
-// xor/fold/popc/add chains of 32-bit integer work, which Hopper issues
-// at 64 a clock per SM (__popc at 16).
+// once while each (row, center) pair costs d compare-adds or w field
+// tests of 32-bit integer work, which Hopper issues at 64 a clock per SM
+// (adds also on the FMA pipe; __popc at 16, on a pipe of its own). The
+// reference's OR-fold costs 11 integer operations a 16-bit word (xor,
+// 4 x (shift, or), and, add), all on the integer pipe. The field test
+// costs three LOP3 (xor, and, the or-and), the add (VIADD) and half an
+// IADD3 (the count's add, two words at a time), plus a __popc, and ran
+// 2.3x faster than the OR-fold at 16-bit fields on an H100. The least
+// time counts only the three LOP3 on the integer pipe: the adds can go
+// to the FMA pipe as IMAD, and a quarter of the popcs can become IMAD.HI
+// shift-adds (chip_smoke.py PACKED_OPS). This kernel takes ~1.6x that;
+// variants that move the adds and popcs off as the bound does, or that
+// raise the blocks an SM holds, were not faster, and what holds it back
+// is not known (tools/kernel_variants.py --kernel packed).
 //
 // Design. As in distance_argmin.cu, the TPU's sequential grid axis over
 // center tiles (running min in scratch) becomes a loop inside the block:
@@ -30,7 +46,10 @@
 // without a cross-thread reduction. Per block, 256 rows and a tile of BK
 // centers are staged in shared memory DC columns at a time; a thread
 // copies its row's chunk into registers and reads the center tile as
-// 16-byte broadcasts (every thread reads the same address). The chunk
+// 16-byte broadcasts (every thread reads the same address). Two rows a
+// thread would share each center load, but need 64 row and 64 count
+// registers at w = 32 and run 1.6x slower (tools/kernel_variants.py
+// --kernel packed). The chunk
 // width DC (8, 16 or 32 columns) is a template parameter picked from d,
 // so short rows (9 hetero codes, one 4-bit word) do not pay for 32.
 // Columns past d are padded so that they never count: -1 against -2 for
@@ -58,17 +77,22 @@ struct Equality {
 template <int BITS>
 struct Packed {
   static constexpr int32_t kPadX = 0, kPadC = 0;
-  static constexpr uint32_t kLsb = BITS == 1   ? 0xFFFFFFFFu
-                                   : BITS == 2 ? 0x55555555u
-                                   : BITS == 4 ? 0x11111111u
-                                   : BITS == 8 ? 0x01010101u
-                                   : BITS == 16 ? 0x00010001u
-                                                : 0x00000001u;
+  // the top bit of every BITS-bit field (BITS in 2..16), and the rest
+  static constexpr uint32_t kHigh = BITS == 2   ? 0xAAAAAAAAu
+                                    : BITS == 4 ? 0x88888888u
+                                    : BITS == 8 ? 0x80808080u
+                                                : 0x80008000u;
+  static constexpr uint32_t kLow = ~kHigh;
+  // each field's top bit set iff that field of z is not zero: (z & low) +
+  // low stays below 2^BITS in every field, so no carry crosses a field
+  __device__ __forceinline__ static uint32_t nonzero_fields(uint32_t z) {
+    return (((z & kLow) + kLow) | z) & kHigh;
+  }
   __device__ __forceinline__ static int term(int32_t a, int32_t b) {
-    uint32_t z = (uint32_t)a ^ (uint32_t)b;
-#pragma unroll
-    for (int s = BITS >> 1; s > 0; s >>= 1) z |= z >> s;
-    return __popc(z & kLsb);
+    const uint32_t z = (uint32_t)a ^ (uint32_t)b;
+    if constexpr (BITS == 1) return __popc(z);
+    else if constexpr (BITS == 32) return z != 0u;
+    else return __popc(nonzero_fields(z));
   }
   __device__ __forceinline__ static int finish(int acc, int /*d*/) {
     return acc;

@@ -2,18 +2,23 @@
 
 Replace ``repro/kernels/distance_argmin.py::distance_argmin_hamming``
 (the TPU kernel ``_ham_kernel``, attribute equality over int32 codes) and
-``::distance_argmin_hamming_packed`` (``_ham_packed_kernel``, XOR +
-field fold + popcount over bit-packed uint32 words): GEEK's one-pass
+``::distance_argmin_hamming_packed`` (``_ham_packed_kernel``, XOR + field
+test + popcount over bit-packed uint32 words): GEEK's one-pass
 assignment for hetero rows with categorical columns (equality) and for
 sparse sets and numeric-only hetero rows (packed, 16- and 4-bit fields).
 
-Bound on this card: operations (32-bit integer compare/add, xor/shift/or
-and ``__popc``), not memory. Design (``csrc/distance_argmin_hamming.cu``):
-one thread per row walks every center in ascending order from shared-
-memory tiles, with a strict '<' so ties go to the lowest index. The
-contract is the reference's main path (``core.assign.assign_hamming`` and
-``assign_hamming_packed``): an invalid center counts ``d + 1`` (packed
-without ``d``: int32 max), so labels and counts equal the plain versions
+Bound on this card: operations, not memory: 32-bit integer compares and
+adds (equality), and for the packed form the logic, adds and ``__popc``
+of each word pair, which Hopper issues on three pipes. Design
+(``csrc/distance_argmin_hamming.cu``): one thread per row walks every
+center in ascending order from shared-memory tiles, with a strict '<'
+so ties go to the lowest index. The packed form tests all fields of a
+word at once with the SWAR test ``(((z & low) + low) | z) & high``
+(``pack.field_mismatch_swar``): 4 integer ops a word where the
+reference's OR-fold takes 11. The contract is the reference's main path
+(``core.assign.assign_hamming`` and ``assign_hamming_packed``): an
+invalid center counts ``d + 1`` (packed without ``d``: int32 max), so
+labels and counts equal the plain versions
 ``ref.distance_argmin_hamming_ref`` and
 ``ref.distance_argmin_hamming_packed_ref`` bit for bit.
 """

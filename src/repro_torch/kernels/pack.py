@@ -115,6 +115,64 @@ def field_mismatch_count(xor_words: torch.Tensor, bits: int) -> torch.Tensor:
     return popcount32(z & FIELD_LSB[bits])
 
 
+def field_mismatch_swar(xor_words: torch.Tensor, bits: int) -> torch.Tensor:
+    """``field_mismatch_count`` as the CUDA kernel computes it: the SWAR
+    field test ``(((z & low) + low) | z) & high``, ``high`` each field's
+    top bit and ``low = ~high``, then a popcount (bits 1: ``popc(z)``;
+    32: ``z != 0``). ``(z & low) + low`` stays below 2**bits in every
+    field, so no carry crosses a field, and the top bit of a field is set
+    iff that field of ``z`` is not zero. The plain paths keep the OR-fold;
+    this one holds the kernel's arithmetic to it in the tests."""
+    z = xor_words.to(torch.int64) & M32
+    if bits == 1:
+        return popcount32(z)
+    if bits == 32:
+        return (z != 0).to(torch.int32)
+    high = (FIELD_LSB[bits] << (bits - 1)) & M32
+    low = ~high & M32
+    return popcount32((((z & low) + low) | z) & high)
+
+
+#: the packed Hamming kernel's edge cases: every field of every 64-word
+#: row mismatching (the count's largest per-word sums), fields differing
+#: only in their top or their lowest bit (the edges of the field test), a
+#: dead tile of 32 centers between live ones with k not a multiple of 32
+#: (the skip of a tile with no valid center)
+PACKED_CASES = ("every field mismatching", "top bit only", "lowest bit only",
+                "dead tile between live ones")
+
+
+def packed_case(case: str, bits: int, n: int, gen: torch.Generator,
+                device=None):
+    """(codes (n, d), centers (k, d) int64 field values, valid (k,) bool)
+    of one of ``PACKED_CASES`` at field width ``bits``, drawn from
+    ``gen`` on ``device`` (its device by default). Shared by the card
+    tests, ``chip_smoke.py`` and ``tools/kernel_variants.py``."""
+    device = gen.device if device is None else device
+    hi = 2**32 if bits == 32 else 1 << bits
+
+    def randint(lo, high, shape):
+        return torch.randint(lo, high, shape, generator=gen, device=device)
+    if case == "dead tile between live ones":
+        k, d = 100, 45
+        cen, codes = randint(0, hi, (k, d)), randint(0, hi, (n, d))
+        codes[::3] = cen[40]                    # the dead tile's center
+        codes[1::3] = cen[70]
+        i = torch.arange(k, device=device)
+        return codes, cen, (i < 20) | (i >= 64)
+    k, d = 70, 64 * 32 // bits                  # 64 words a row
+    valid = torch.arange(k, device=device) % 7 != 3
+    if case == "every field mismatching":       # rows' top bits set, not
+        return (randint(hi // 2, hi, (n, d)),    # the centers'
+                randint(0, hi // 2, (k, d)), valid)
+    if case not in PACKED_CASES:
+        raise ValueError(f"unknown packed case {case!r}")
+    cen = randint(0, hi, (k, d))
+    flip = 1 << (bits - 1) if case == "top bit only" else 1
+    mask = torch.rand((n, d), generator=gen, device=device) < 0.2
+    return cen[randint(0, k, (n,))] ^ (mask * flip), cen, valid
+
+
 def packed_hamming(xp: torch.Tensor, cp: torch.Tensor, bits: int
                    ) -> torch.Tensor:
     """(n, w) x (k, w) packed codes -> (n, k) int32 mismatch counts."""

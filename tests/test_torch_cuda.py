@@ -287,19 +287,28 @@ def test_hamming_kernel_bit_exact(cuda_device, n, k, d, card, valid_mode):
     np.testing.assert_array_equal(kc.cpu().numpy(), pc.numpy())
 
 
-@pytest.mark.parametrize("n,k,d,bits", PACKED_SHAPES + [
-    (70, 9, 11, b) for b in (1, 2, 4, 8, 16, 32)])
-def test_hamming_packed_kernel_bit_exact(cuda_device, n, k, d, bits):
-    rng = np.random.default_rng(n * k + bits)
-    hi = 2**32 if bits == 32 else 1 << bits
-    codes = rng.integers(0, hi, (n, d), dtype=np.uint64).astype(np.uint32)
-    c = rng.integers(0, hi, (k, d), dtype=np.uint64).astype(np.uint32)
-    codes[::3] = c[0]
-    codes[1, :] = hi - 1                        # words with the top bit set
+@pytest.mark.parametrize("n,k,d,bits,case", [
+    (*shape, "random") for shape in PACKED_SHAPES + [
+        (70, 9, 11, b) for b in (1, 2, 4, 8, 16, 32)]] + [
+    (300, None, None, b, case) for case in tpack.PACKED_CASES
+    for b in (1, 2, 4, 8, 16, 32)])
+def test_hamming_packed_kernel_bit_exact(cuda_device, n, k, d, bits, case):
+    if case == "random":
+        rng = np.random.default_rng(n * k + bits)
+        hi = 2**32 if bits == 32 else 1 << bits
+        codes = rng.integers(0, hi, (n, d), dtype=np.uint64).astype(np.uint32)
+        c = rng.integers(0, hi, (k, d), dtype=np.uint64).astype(np.uint32)
+        codes[::3] = c[0]
+        codes[1, :] = hi - 1                    # words with the top bit set
+        valid = np.arange(k) % 7 != 3
+    else:   # chip_smoke.py phase 6's edge cases (pack.PACKED_CASES)
+        codes, c, valid = (t.numpy() for t in tpack.packed_case(
+            case, bits, n, torch.Generator().manual_seed(bits)))
+        (n, d), k = codes.shape, c.shape[0]
     xp = tpack.pack_codes(carrier(codes), bits)
     cp = tpack.pack_codes(carrier(c), bits)
     assert d * bits < 32 or int(xp.min()) < 0
-    valid = torch.arange(k) % 7 != 3
+    valid = torch.from_numpy(valid)
     for dd in (d, None):
         kl, kc = tdh.distance_argmin_hamming_packed(
             xp.to(cuda_device), cp.to(cuda_device), valid.to(cuda_device),
