@@ -54,6 +54,7 @@ Imports only torch, numpy, the standard library and ``repro_torch``.
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -90,19 +91,49 @@ INT32_PER_CLK, POPC_PER_CLK = 64, 16
 # (3 / 64) (variant (e1i), bit-exact at every width; more pairs or more
 # shifted words only move work between pipes that are not the limit).
 # b = 32: a compare and a predicated add. The equality function needs the
-# same per column. Both keep a running minimum: a compare and a select
-# per (row, center), on the integer pipe.
+# same per column: ISETP, then an add predicated on it, which the
+# equality kernel's SASS issues as VIADD off the integer pipe (9 of each
+# a pair at d = 9; the kernel would take at least 2.33 ms at (2M, 1,024,
+# 9) were the VIADD on the integer pipe, and takes 1.48 on an H100). Both
+# keep a running minimum: with a center's count and index in one key
+# (count * tile + index), one min a (row, center), VIMNMX on the integer
+# pipe, as the equality kernel's SASS shows it.
 PACKED_OPS = {1: (1, 1, 1), 2: (3, 2, 0.75), 4: (3, 2, 0.75),
               8: (3, 2, 0.75), 16: (3, 2, 0.75), 32: (1, 1, 0)}
 EQUALITY_OPS = (1, 1)
 
 
+#: the equality kernel at the heterogeneous path's width (d = 9), and the
+#: opcodes its SASS is counted by (Hopper's min is VIMNMX)
+EQ_KERNEL9 = "equality_argmin_kernelILi9E"
+EQ_OPCODES = ("ISETP", "SEL", "IADD3", "IMAD", "LOP3", "IMNMX", "VIMNMX",
+              "LDS", "VIADD")
+#: a column's compare: ISETP.NE of two registers (the kernels' other
+#: compares test against RZ or an immediate, or are not ISETP.NE)
+COLUMN_COMPARE = re.compile(r"ISETP\.NE\.AND P\d, PT, R\d+(\.reuse)?, "
+                            r"R\d+(\.reuse)?, PT")
+
+
+def equality_sass(lib, source):
+    """({opcode: count} of the d = 9 equality kernel in the library
+    ``lib``, its column compares a (row, center) pair): the compares over
+    the pairs of one step of its inner loop, EQ_ROWS rows x EQ_UNROLL
+    centers, read from the kernel's ``source`` text."""
+    from repro_torch.kernels import build
+    text = build.sass(lib, EQ_KERNEL9)
+    counts = {op: text.count(f" {op}") for op in EQ_OPCODES}
+    rows, unroll = (int(re.search(rf"constexpr int {name} = (\d+);",
+                                  source).group(1))
+                    for name in ("EQ_ROWS", "EQ_UNROLL"))
+    return counts, len(COLUMN_COMPARE.findall(text)) / (rows * unroll)
+
+
 def hamming_op_times(pairs, words, ops, int_rate, popc_rate):
     """Seconds of each pipe for ``pairs`` (row, valid center) pairs of
     ``words`` columns at ``ops`` = (integer, FMA, popc) a column, plus the
-    running minimum's compare and select a pair on the integer pipe."""
+    running minimum's one min a pair on the integer pipe."""
     ints, fmas, popcs = (*ops, 0)[:3]
-    return [pairs * (words * ints + 2) / int_rate,
+    return [pairs * (words * ints + 1) / int_rate,
             pairs * words * fmas / int_rate,
             pairs * words * popcs / popc_rate]
 
@@ -1731,6 +1762,20 @@ def run_paths(rt, dev, gen, card, int_rate, popc_rate, data, x_fit, x_new,
                 f"equality ({n},{k},{d}) {mode} valid"))
         print(f"  equality ({n},{k},{d}, card {card_}): bit-exact, with and "
               "without valid centers")
+    # a generator of their own: the later phases draw from ``gen`` what
+    # they drew before these cases were added
+    eq_gen = torch.Generator(device=dev).manual_seed(7)
+    for case in ref.EQUALITY_CASES:
+        for d in ref.EQUALITY_WIDTHS:
+            codes, cen, some = ref.equality_case(case, d, 3_000, eq_gen)
+            for mode, valid in (("its", some), ("no", torch.zeros_like(some))):
+                ham_err = max(ham_err, ham_exact(
+                    dh.distance_argmin_hamming(codes, cen, valid),
+                    ref.distance_argmin_hamming_ref(codes, cen, valid),
+                    f"equality, {case}, d = {d}, {mode} valid centers"))
+        print(f"  equality, {case} (3000,{cen.shape[0]},d), d in "
+              f"{list(ref.EQUALITY_WIDTHS)}: bit-exact, with its valid "
+              "centers and with none")
 
     def packed_inputs():
         """(what, codes, centers, valid, bits): the random sweep, whose
@@ -1796,6 +1841,8 @@ def run_paths(rt, dev, gen, card, int_rate, popc_rate, data, x_fit, x_new,
         dh.distance_argmin_hamming(codes, cen, cv),
         assign.assign_hamming(codes, cen, cv), "equality at the main path"))
     eq_ms = cuda_ms(lambda: dh.distance_argmin_hamming(codes, cen, cv), 10)
+    eq_dev_ms = device_ms(lambda: dh.distance_argmin_hamming(codes, cen, cv),
+                          10, "equality_argmin_kernel")
     eq_plain_ms = cuda_ms(lambda: assign.assign_hamming(codes, cen, cv), 1)
     eq_lib_ms = cuda_ms(lambda: torch.cdist(codes.float(), cen.float(), p=0),
                         3)
@@ -1806,9 +1853,16 @@ def run_paths(rt, dev, gen, card, int_rate, popc_rate, data, x_fit, x_new,
         4.0 * (n_ * d_ + cen.numel() + cv.numel() + 2 * n_),
         hamming_op_times(n_ * kv, d_, EQUALITY_OPS, int_rate, popc_rate))
     print(f"  equality kernel at ({n_},{cen.shape[0]},{d_}), {kv} valid: "
-          f"bit-exact vs plain; kernel {eq_ms:.3f} ms, plain (blocked) "
-          f"{eq_plain_ms:.3f} ms, cdist(p=0) {eq_lib_ms:.3f} ms, bound "
-          f"{eq_bound:.3f} ms ({eq_by})")
+          f"bit-exact vs plain; kernel {eq_ms:.4f} ms (device "
+          f"{eq_dev_ms:.4f}), plain (blocked) {eq_plain_ms:.3f} ms, "
+          f"cdist(p=0) {eq_lib_ms:.3f} ms, bound {eq_bound:.4f} ms "
+          f"({eq_by}): {eq_bound / eq_ms:.1%} of it ({eq_bound / eq_dev_ms:.1%}"
+          f" by device time), {card}")
+    sass, per_pair = equality_sass(
+        build.library_path("distance_argmin_hamming"),
+        (build.CSRC / "distance_argmin_hamming.cu").read_text())
+    print(f"  SASS of the equality kernel at d = 9 ({EQ_KERNEL9}): {sass}; "
+          f"column compares a (row, center) pair {per_pair:.2f}")
     del codes
     het_sh_launch, het_sh_s = sharded_check(
         "hetero", het_est, het_fit, het_model, het_est.result_,

@@ -96,15 +96,21 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
-def sass_counts(lib, function: str, opcodes) -> dict:
-    """{opcode: count} in the SASS of the kernels of the library ``lib``
-    whose mangled name contains ``function`` (``cuobjdump -sass``, beside
-    ``nvcc``); raises when no kernel matches."""
+def sass(lib, function: str) -> str:
+    """The SASS of the kernels of the library ``lib`` whose mangled name
+    contains ``function`` (``cuobjdump -sass``, beside ``nvcc``); raises
+    when no kernel matches."""
     exe = os.path.join(os.path.dirname(nvcc()), "cuobjdump")
-    sass = subprocess.run([exe, "-sass", str(lib)], capture_output=True,
+    text = subprocess.run([exe, "-sass", str(lib)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
-    parts = [p for p in sass.split("Function : ")[1:]
+    parts = [p for p in text.split("Function : ")[1:]
              if function in p.split("\n", 1)[0]]
     if not parts:
         raise RuntimeError(f"no kernel named like {function} in {lib}")
-    return {op: sum(p.count(f" {op}") for p in parts) for op in opcodes}
+    return "".join(parts)
+
+
+def sass_counts(lib, function: str, opcodes) -> dict:
+    """{opcode: count} in ``sass(lib, function)``."""
+    text = sass(lib, function)
+    return {op: text.count(f" {op}") for op in opcodes}

@@ -7,18 +7,25 @@ test + popcount over bit-packed uint32 words): GEEK's one-pass
 assignment for hetero rows with categorical columns (equality) and for
 sparse sets and numeric-only hetero rows (packed, 16- and 4-bit fields).
 
-Bound on this card: operations, not memory: 32-bit integer compares and
-adds (equality), and for the packed form the logic, adds and ``__popc``
-of each word pair, which Hopper issues on three pipes. Design
-(``csrc/distance_argmin_hamming.cu``): one thread per row walks every
-center in ascending order from shared-memory tiles, with a strict '<'
-so ties go to the lowest index. The packed form tests all fields of a
-word at once with the SWAR test ``(((z & low) + low) | z) & high``
-(``pack.field_mismatch_swar``): 4 integer ops a word where the
-reference's OR-fold takes 11. The contract is the reference's main path
-(``core.assign.assign_hamming`` and ``assign_hamming_packed``): an
-invalid center counts ``d + 1`` (packed without ``d``: int32 max), so
-labels and counts equal the plain versions
+Bound on this card: operations, not memory: 32-bit integer compares,
+adds and a running minimum (equality), and for the packed form the
+logic, adds and ``__popc`` of each word pair, which Hopper issues on
+three pipes. Design (``csrc/distance_argmin_hamming.cu``): for rows of
+at most 32 codes (the main path's 9) the equality kernel is templated on
+the exact width, so a row compares only its own columns; each thread
+keeps 4 rows and one shared-memory load of a center serves them; a
+center's count and index form one key (count · 32 + its index in its
+tile of 32), so a tile's minimum is one min a pair, merged across tiles
+with a strict '<' (``ref.distance_argmin_hamming_keys`` is that
+arithmetic in plain torch). Wider equality rows and the packed form walk
+every center in ascending order, one row a thread, from shared-memory
+tiles, with a strict '<' so ties go to the lowest index; the packed
+form tests all fields of a word at once with the SWAR test
+``(((z & low) + low) | z) & high`` (``pack.field_mismatch_swar``): 4
+integer ops a word where the reference's OR-fold takes 11. The contract
+is the reference's main path (``core.assign.assign_hamming`` and
+``assign_hamming_packed``): an invalid center counts ``d + 1`` (packed
+without ``d``: int32 max), so labels and counts equal the plain versions
 ``ref.distance_argmin_hamming_ref`` and
 ``ref.distance_argmin_hamming_packed_ref`` bit for bit.
 """

@@ -77,6 +77,88 @@ def distance_argmin_hamming_ref(codes, centers, center_valid):
     return lab.to(torch.int32), mind
 
 
+#: the equality kernel's edge cases: codes equal to the -1 / -2 pad
+#: sentinels of the TPU kernel on both sides, int32's extremes, every
+#: center the same row (ties: the first valid center wins), a dead tile of
+#: 32 centers between live ones with k not a multiple of 32, no valid
+#: center; each at every width of ``EQUALITY_WIDTHS``
+EQUALITY_CASES = ("pad sentinels", "int32 extremes", "every center identical",
+                  "dead tile between live ones", "no valid center")
+#: every width of the kernel's one-chunk path up to 17, its last two, and
+#: two of the chunked path (d > 32)
+EQUALITY_WIDTHS = (*range(1, 18), 31, 32, 33, 45)
+INT32_MIN = -2**31
+
+
+def equality_case(case: str, d: int, n: int, gen: torch.Generator,
+                  device=None):
+    """(codes (n, d), centers (k, d) int32, valid (k,) bool) of one of
+    ``EQUALITY_CASES`` at width ``d``, drawn from ``gen`` on ``device``
+    (its device by default). Shared by the card tests, ``chip_smoke.py``
+    and ``tools/kernel_variants.py``."""
+    device = gen.device if device is None else device
+    if case not in EQUALITY_CASES:
+        raise ValueError(f"unknown equality case {case!r}")
+
+    def draw(values, shape):
+        v = torch.tensor(values, dtype=torch.int32, device=device)
+        return v[torch.randint(0, len(values), shape, generator=gen,
+                               device=device)]
+    k = 100 if case == "dead tile between live ones" else 70
+    i = torch.arange(k, device=device)
+    valid = i % 7 != 3
+    if case == "pad sentinels":
+        cen = draw((-2, -1, 0, 1), (k, d))
+        codes = draw((-2, -1, 0, 1), (n, d))
+    elif case == "int32 extremes":
+        ext = (INT32_MIN, INT32_MIN + 1, -1, 0, INT32_MAX - 1, INT32_MAX)
+        cen, codes = draw(ext, (k, d)), draw(ext, (n, d))
+    else:
+        cen = torch.randint(0, 12, (k, d), generator=gen, device=device,
+                            dtype=torch.int32)
+        codes = torch.randint(0, 12, (n, d), generator=gen, device=device,
+                              dtype=torch.int32)
+    if case == "every center identical":
+        cen[:] = cen[0]
+        valid = i >= 5
+    elif case == "dead tile between live ones":
+        valid = (i < 20) | (i >= 64)
+        codes[::3] = cen[40]                    # the dead tile's center
+        codes[1::3] = cen[70]
+        return codes, cen, valid
+    elif case == "no valid center":
+        valid = torch.zeros(k, dtype=torch.bool, device=device)
+    codes[::3] = cen[torch.randint(0, k, (codes[::3].shape[0],),
+                                   generator=gen, device=device)]
+    return codes, cen, valid
+
+
+def distance_argmin_hamming_keys(codes, centers, center_valid, *, bk=32):
+    """The equality kernel's arithmetic for d <= 32, in plain torch (the
+    tests hold it to the reference): a center's key is its offset, d·bk +
+    j when valid and (2d + 1)·bk + j when not (j its index in its tile of
+    bk), less bk for every equal column, so count·bk + j; a tile's least
+    key is its least count, first index on ties; each tile with a valid
+    center is merged into (count, label) with a strict '<', tiles in
+    ascending order. Returns (labels int32, counts int32)."""
+    n, d = codes.shape
+    k = centers.shape[0]
+    j = torch.arange(k, device=codes.device) % bk
+    off = torch.where(center_valid, d, 2 * d + 1) * bk + j
+    eq = (codes[:, None, :] == centers[None, :, :]).sum(-1)
+    key = off[None, :] - bk * eq
+    best = torch.full((n,), d + 1, dtype=torch.int64, device=codes.device)
+    best_i = torch.zeros_like(best)
+    for t0 in range(0, k, bk):
+        if not bool(center_valid[t0:t0 + bk].any()):
+            continue
+        tmin = key[:, t0:t0 + bk].min(dim=1).values
+        take = tmin // bk < best
+        best = torch.where(take, tmin // bk, best)
+        best_i = torch.where(take, t0 + tmin % bk, best_i)
+    return best_i.to(torch.int32), best.to(torch.int32)
+
+
 def distance_argmin_hamming_packed_ref(packed, packed_centers, center_valid,
                                        *, bits, d=None):
     """Packed-domain plain version: XOR + per-field collapse + popcount;

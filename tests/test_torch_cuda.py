@@ -270,13 +270,22 @@ def _ham(rng, n, k, d, card):
     return torch.from_numpy(codes), torch.from_numpy(c)
 
 
-@pytest.mark.parametrize("n,k,d,card", HAM_SHAPES)
+@pytest.mark.parametrize("n,k,d,card,case", [
+    (*shape, "random") for shape in HAM_SHAPES] + [
+    (300, None, d, None, case) for case in tref.EQUALITY_CASES
+    for d in tref.EQUALITY_WIDTHS])
 @pytest.mark.parametrize("valid_mode", ["some", "none"])
-def test_hamming_kernel_bit_exact(cuda_device, n, k, d, card, valid_mode):
-    rng = np.random.default_rng(n + k + d)
-    codes, c = _ham(rng, n, k, d, card)
-    valid = (torch.arange(k) % 7 != 3) if valid_mode == "some" \
-        else torch.zeros(k, dtype=torch.bool)
+def test_hamming_kernel_bit_exact(cuda_device, n, k, d, card, case,
+                                  valid_mode):
+    if case == "random":
+        rng = np.random.default_rng(n + k + d)
+        codes, c = _ham(rng, n, k, d, card)
+        some = torch.arange(k) % 7 != 3
+    else:   # chip_smoke.py phase 6's edge cases (ref.EQUALITY_CASES)
+        codes, c, some = tref.equality_case(case, d, n,
+                                            torch.Generator().manual_seed(d))
+        k = c.shape[0]
+    valid = some if valid_mode == "some" else torch.zeros(k, dtype=torch.bool)
     before = tdh.distance_argmin_hamming.launches
     kl, kc = tdh.distance_argmin_hamming(codes.to(cuda_device),
                                          c.to(cuda_device),

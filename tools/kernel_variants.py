@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """What holds a hand-written kernel back: variants of its source, timed.
 
-    python tools/kernel_variants.py [--kernel flash|l2|acc|packed|all]
-        [--against DIR]
+    python tools/kernel_variants.py
+        [--kernel flash|l2|acc|equality|packed|all] [--against DIR]
 
 Each variant is the committed source (``src/repro_torch/kernels/csrc``)
 with one string edit, compiled by ``nvcc`` with the build's own flags
@@ -57,10 +57,25 @@ inputs:
   rows, top-bit-only and lowest-bit-only differences, a dead tile) and
   against the committed kernel at the timed shape, and
   prints the opcode counts of its 16-bit kernel's SASS. With ``--against
-  DIR`` the packed and the equality kernel (same source; at the
-  heterogeneous path's (2,000,000, 1,024, 9), all valid) of the other
-  checkout run beside the committed ones (other, committed, committed,
-  other), held bit for bit.
+  DIR`` the packed kernel of the other checkout runs beside the committed
+  one (other, committed, committed, other), held bit for bit.
+- ``equality``: ``distance_argmin_hamming`` at the heterogeneous path's
+  shape, (2,000,000, 1,024, 9) codes of cardinality 12, a third of the
+  rows copies of centers, all centers valid. Variants of the committed
+  ``equality_argmin_kernel`` (``csrc/distance_argmin_hamming.cu``): (1)
+  the exact width alone, with the earlier kernel's compare-and-select a
+  (row, center) pair, one row a thread and 32-center stages; (2) with the
+  tile's packed-key minimum; (3) with every center staged at once; 1, 2,
+  4 or 8 rows a thread; 32-center stages; a tile's 32 centers wholly
+  unrolled; the equal column's add as an IMAD predicated on the compare
+  (the FMA pipe). Each is held bit for bit against the plain version
+  over every edge case at every width (``ref.EQUALITY_CASES``,
+  ``ref.EQUALITY_WIDTHS``, with their validity and with none) and at the
+  timed shape, and prints the opcode counts of its d = 9 kernel's SASS
+  and its column compares a (row, center) pair. With ``--against DIR``
+  the other checkout's equality kernel (its SASS too) and its packed
+  kernel at 16 and 4 bits run beside the committed ones (other,
+  committed, committed, other), held bit for bit.
 
 Variants that drop work are for timing only: they break the function.
 Needs the card and ``nvcc``; the variants' libraries go to a temporary
@@ -70,6 +85,7 @@ import argparse
 import ctypes
 import importlib.util
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -84,7 +100,8 @@ from repro_torch.kernels import distance_argmin as da  # noqa: E402
 from repro_torch.kernels import distance_argmin_hamming as dh  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
-from chip_smoke import device_ms  # noqa: E402
+from chip_smoke import (COLUMN_COMPARE, EQ_KERNEL9, EQ_OPCODES,  # noqa: E402
+                        device_ms, equality_sass)
 
 MMA_PV = """            mma(o[2 * np], pa[part], vb[0], vb[1]);
             mma(o[2 * np + 1], pa[part], vb[2], vb[3]);
@@ -307,6 +324,32 @@ PK_OPCODES = ("LOP3", "IADD3", "VIADD", "IMAD", "IMAD.HI", "SHF", "LEA",
               "POPC", "ISETP", "LDS")
 
 
+#: the equality kernel (``equality_argmin_kernel``, d <= 32): its rows a
+#: thread, its stage of centers, the earlier kernel's per-pair merge in
+#: place of the tile's packed-key minimum, and the equal column's add
+EQ_SOURCE = (build.CSRC / "distance_argmin_hamming.cu").read_text()
+EQ_ROWS = re.search(r"constexpr int EQ_ROWS = (\d+);", EQ_SOURCE)
+EQ_STAGE = ("  const int stage = (tiles < most ? tiles : most) * BK;",
+            "  const int stage = BK;")
+EQ_PAIR_MERGE = ("          tmin[r] = min(tmin[r], key);",
+                 "          merge(best[r], best_i[r], key, k0 + t * BK);")
+EQ_TAKE = "  return a == b ? key - BK : key;"
+#: the add as an IMAD on the FMA pipe, predicated on the compare: its
+#: multiplier, blockDim.x / 256 = 1, hidden from the compiler
+EQ_TAKE_IMAD = """  int one, minus = -BK;
+  asm("{ .reg .u32 t; mov.u32 t, %%ntid.x; shr.u32 %0, t, 8; }" : "=r"(one));
+  asm("{ .reg .pred p; setp.eq.s32 p, %1, %2; @p mad.lo.s32 %0, %0, %3, %4; }"
+      : "+r"(key) : "r"(a), "r"(b), "r"(one), "r"(minus));
+  return key;"""
+#: the earlier kernel's equality form at d = 9 (hamming_argmin_kernel<
+#: Equality, 16>), in a checkout given by --against
+PK_EQ16 = "EqualityELi16E"
+
+
+def eq_rows(r):
+    return (EQ_ROWS.group(0), f"constexpr int EQ_ROWS = {r};")
+
+
 def edit(src, *change):
     """Replace ``old`` by ``new``, or, given (start, end, new), the text
     from ``start`` up to ``end``."""
@@ -375,6 +418,20 @@ VARIANTS = {
         "no group adds (timing only)": [(ACC_ADDS, "")],
         "no sort, no adds (timing only)": [ACC_SORT, (ACC_ADDS, "")],
     }),
+    "equality": ("distance_argmin_hamming", {
+        "(1) exact width alone: compare-and-select a pair, 1 row a thread, "
+        "32-center stages": [eq_rows(1), EQ_STAGE, EQ_PAIR_MERGE],
+        "(2) + the tile's packed-key min": [eq_rows(1), EQ_STAGE],
+        "(3) + every center staged at once (1 row a thread)": [eq_rows(1)],
+        **{f"{r} rows a thread": [eq_rows(r)] for r in (2, 4, 8)
+           if r != int(EQ_ROWS.group(1))},
+        f"as committed ({EQ_ROWS.group(1)} rows a thread)": [],
+        "as committed, 32-center stages": [EQ_STAGE],
+        "as committed, the add as a predicated IMAD (FMA pipe)": [
+            (EQ_TAKE, EQ_TAKE_IMAD)],
+        "as committed, a tile's 32 centers unrolled": [
+            ("constexpr int EQ_UNROLL = 8;", "constexpr int EQ_UNROLL = 32;")],
+    }),
     "packed": ("distance_argmin_hamming", {
         "as committed ((a) field test, a popc a word; 1 row a thread)": [],
         "(b) per-field lanes, flushed, no popc": PK_STATE + [
@@ -403,7 +460,7 @@ VARIANTS = {
 def compile_all(which, tmp):
     """Compile every variant of the chosen kernels at once; returns
     {(kernel, variant): library path} and prints each one's registers."""
-    procs = {}
+    procs, texts = {}, {}
     for kernel in which:
         source, variants = VARIANTS[kernel]
         text = (build.CSRC / f"{source}.cu").read_text()
@@ -413,6 +470,7 @@ def compile_all(which, tmp):
                 src = edit(src, *change)
             if kernel == "acc":
                 src += ACC_OCCUPANCY
+            texts[(kernel, name)] = src
             cu = os.path.join(tmp, f"{kernel}{i}.cu")
             with open(cu, "w") as f:
                 f.write(src)
@@ -428,6 +486,7 @@ def compile_all(which, tmp):
         entry = {"flash": "flash_attention_bf16_kernelILi64",
                  "l2": "l2_argmin_kernelILb1",
                  "acc": "l2_argmin_acc_kernelILb1",
+                 "equality": EQ_KERNEL9,
                  "packed": PK_KERNEL16}[key[0]]
         lines = out.splitlines()
         regs = next((f"{lines[i + 3].split(':')[-1].strip()}; "
@@ -437,6 +496,10 @@ def compile_all(which, tmp):
         if key[0] == "packed":
             print(f"    SASS of its 16-bit, 32-word kernel: "
                   f"{build.sass_counts(lib, PK_KERNEL16, PK_OPCODES)}", flush=True)
+        if key[0] == "equality":
+            counts, per_pair = equality_sass(lib, texts[key])
+            print(f"    SASS of its d = 9 kernel: {counts}; column compares "
+                  f"a (row, center) pair {per_pair:.2f}", flush=True)
         libs[key] = lib
     return libs
 
@@ -607,7 +670,121 @@ def other_hamming(root, tmp):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     bind_hamming(mod, lib)
-    return mod
+    return mod, lib
+
+
+def beside(rows, against):
+    """Time each (what, other's call, committed call, kernel names) in the
+    order other, committed, committed, other; raise unless the two give
+    the same outputs."""
+    for what, fo, fc, match in rows:
+        same = all(torch.equal(p, q) for p, q in zip(fo(), fc()))
+        times = {}
+        for who, fn in (("other", fo), ("committed", fc), ("committed", fc),
+                        ("other", fo)):
+            times.setdefault(who, []).append(f"{timed(fn, match):.4f}")
+        print(f"  {what}: {against} {', '.join(times['other'])} ms, "
+              f"committed {', '.join(times['committed'])} ms (other, "
+              f"committed, committed, other); labels and counts "
+              f"bit-identical: {same}", flush=True)
+        if not same:
+            raise AssertionError("the two checkouts' outputs differ")
+
+
+def timed(fn, match):
+    """Device ms a call of ``fn`` after ~0.1 s of it (the card at its
+    working clock)."""
+    for _ in range(60):
+        fn()
+    return device_ms(fn, 10, match)
+
+
+def packed_inputs(dev):
+    """The sparse main path's shape: (2,396,130, 1,024, 32 words) of random
+    fields, the first 62 centers valid."""
+    n, k, w, kv = 2_396_130, 1024, 32, 62
+    gen = torch.Generator(device=dev).manual_seed(0)
+    xp = torch.randint(-2**31, 2**31, (n, w), generator=gen, device=dev,
+                       dtype=torch.int32)
+    cp = torch.randint(-2**31, 2**31, (k, w), generator=gen, device=dev,
+                       dtype=torch.int32)
+    return xp, cp, torch.arange(k, device=dev) < kv
+
+
+def packed_beside(mod, xp, cp, valid):
+    """(what, other's call, committed call, kernel names) of the packed
+    kernel at 16 and 4 bits, for ``beside``."""
+    return [(f"packed, {b} bits",
+             lambda b=b: mod.distance_argmin_hamming_packed(xp, cp, valid,
+                                                            bits=b),
+             lambda b=b: dh.distance_argmin_hamming_packed(xp, cp, valid,
+                                                           bits=b),
+             "Packed") for b in (16, 4)]
+
+
+def equality_cases(dev):
+    """(codes, centers, valid): every edge case (``ref.EQUALITY_CASES``) at
+    every width of ``ref.EQUALITY_WIDTHS``, with its own validity and with
+    none."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for case in ref.EQUALITY_CASES:
+        for d in ref.EQUALITY_WIDTHS:
+            codes, cen, valid = ref.equality_case(case, d, 300, gen)
+            yield codes, cen, valid
+            yield codes, cen, torch.zeros_like(valid)
+
+
+def run_equality(libs, dev, against, tmp):
+    from repro_torch.core import assign
+    n, k, d = 2_000_000, 1024, 9
+    gen = torch.Generator(device=dev).manual_seed(0)
+    codes = torch.randint(0, 12, (n, d), generator=gen, device=dev,
+                          dtype=torch.int32)
+    cen = torch.randint(0, 12, (k, d), generator=gen, device=dev,
+                        dtype=torch.int32)
+    codes[::3] = cen[torch.randint(0, k, (codes[::3].shape[0],),
+                                   generator=gen, device=dev)]
+    every = torch.ones(k, dtype=torch.bool, device=dev)
+    small = list(equality_cases(dev))
+    want_small = [ref.distance_argmin_hamming_ref(*case) for case in small]
+    lab, cnt = assign.assign_hamming(codes, cen, every)
+    want = (lab, cnt.to(torch.int32))
+
+    def exact():
+        for case, (lp, cp_) in zip(small, want_small):
+            lk, ck = dh.distance_argmin_hamming(*case)
+            if not (torch.equal(lk, lp) and torch.equal(ck, cp_)):
+                return False
+        return all(torch.equal(p, q) for p, q in zip(
+            dh.distance_argmin_hamming(codes, cen, every), want))
+
+    print(f"distance_argmin_hamming at ({n},{k},{d}), all valid, device ms:")
+    entry = dh._entry
+    try:
+        for (kernel, name), lib in libs.items():
+            if kernel != "equality":
+                continue
+            bind_hamming(dh, lib)
+            ms = timed(lambda: dh.distance_argmin_hamming(codes, cen, every),
+                       "equality_argmin_kernel")
+            print(f"  {name}: {ms:.4f} ms; bit-exact over every edge case "
+                  f"and at this shape: {exact()}", flush=True)
+    finally:
+        dh._entry = entry
+    if against is None:
+        return
+    other, lib = other_hamming(against, tmp)
+    text = build.sass(lib, PK_EQ16)
+    print(f"  SASS of {against}'s equality kernel at d = 9 "
+          f"(hamming_argmin_kernel<Equality, 16>, 32 centers a step, 1 row "
+          f"a thread): {({op: text.count(f' {op}') for op in EQ_OPCODES})}; "
+          f"column compares a pair "
+          f"{len(COLUMN_COMPARE.findall(text)) / 32:.2f}", flush=True)
+    beside([(f"equality at ({n},{k},{d}), all valid",
+             lambda: other.distance_argmin_hamming(codes, cen, every),
+             lambda: dh.distance_argmin_hamming(codes, cen, every),
+             ("hamming_argmin_kernel", "equality_argmin_kernel"))]
+           + packed_beside(other, *packed_inputs(dev)), against)
 
 
 def packed_cases(dev):
@@ -623,18 +800,8 @@ def packed_cases(dev):
 
 
 def run_packed(libs, dev, against, tmp):
-    n, k, w, kv = 2_396_130, 1024, 32, 62
-    gen = torch.Generator(device=dev).manual_seed(0)
-    xp = torch.randint(-2**31, 2**31, (n, w), generator=gen, device=dev,
-                       dtype=torch.int32)
-    cp = torch.randint(-2**31, 2**31, (k, w), generator=gen, device=dev,
-                       dtype=torch.int32)
-    valid = torch.arange(k, device=dev) < kv
-    codes = torch.randint(0, 12, (2_000_000, 9), generator=gen, device=dev,
-                          dtype=torch.int32)
-    cen = torch.randint(0, 12, (k, 9), generator=gen, device=dev,
-                        dtype=torch.int32)
-    every = torch.ones(k, dtype=torch.bool, device=dev)
+    xp, cp, valid = packed_inputs(dev)
+    (n, w), k, kv = xp.shape, cp.shape[0], int(valid.sum())
     small = list(packed_cases(dev))
     want_small = [ref.distance_argmin_hamming_packed_ref(x, c, v, bits=b, d=d)
                   for b, d, x, c, v in small]
@@ -644,13 +811,6 @@ def run_packed(libs, dev, against, tmp):
     def packed(mod, b):
         return lambda: mod.distance_argmin_hamming_packed(xp, cp, valid,
                                                           bits=b)
-
-    def timed(fn, match):
-        """Device ms a call of ``fn`` after ~0.1 s of it (the card at its
-        working clock)."""
-        for _ in range(60):
-            fn()
-        return device_ms(fn, 10, match)
 
     def exact(mod):
         for (b, d, x, c, v), (lp, cp_) in zip(small, want_small):
@@ -673,41 +833,24 @@ def run_packed(libs, dev, against, tmp):
                   f"width: {exact(dh)}", flush=True)
     finally:
         dh._entry = entry
-    if against is None:
-        return
-    other = other_hamming(against, tmp)
-    for what, fns in (
-            *((f"packed, {b} bits", [packed(m, b) for m in (other, dh)])
-              for b in (16, 4)),
-            ("equality at (2000000,1024,9), all valid", [
-                lambda m=m: m.distance_argmin_hamming(codes, cen, every)
-                for m in (other, dh)])):
-        same = all(torch.equal(p, q) for p, q in zip(fns[0](), fns[1]()))
-        times = {}
-        for who, fn in (("other", fns[0]), ("committed", fns[1]),
-                        ("committed", fns[1]), ("other", fns[0])):
-            times.setdefault(who, []).append(
-                f"{timed(fn, 'hamming_argmin_kernel'):.4f}")
-        print(f"  {what}: {against} {', '.join(times['other'])} ms, "
-              f"committed {', '.join(times['committed'])} ms (other, "
-              f"committed, committed, other); labels and counts "
-              f"bit-identical: {same}", flush=True)
-        if not same:
-            raise AssertionError("the two checkouts' outputs differ")
+    if against is not None:
+        other, _ = other_hamming(against, tmp)
+        beside(packed_beside(other, xp, cp, valid), against)
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--kernel", choices=("flash", "l2", "acc", "packed",
-                                         "all"), default="all")
+    ap.add_argument("--kernel", choices=("flash", "l2", "acc", "equality",
+                                         "packed", "all"), default="all")
     ap.add_argument("--against", default=None,
                     help="another checkout whose kernels run beside the "
-                         "committed ones (--kernel acc, packed)")
+                         "committed ones (--kernel acc, equality, packed)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_variants: needs a CUDA device", file=sys.stderr)
         return 1
-    which = ("flash", "l2", "acc", "packed") if args.kernel == "all" \
+    which = ("flash", "l2", "acc", "equality", "packed") \
+        if args.kernel == "all" \
         else (args.kernel,)
     dev = torch.device("cuda")
     with tempfile.TemporaryDirectory() as tmp:
@@ -718,6 +861,8 @@ def main():
             run_l2(libs, dev)
         if "acc" in which:
             run_acc(libs, dev, args.against, tmp)
+        if "equality" in which:
+            run_equality(libs, dev, args.against, tmp)
         if "packed" in which:
             run_packed(libs, dev, args.against, tmp)
     return 0
