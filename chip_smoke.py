@@ -41,6 +41,15 @@ CUDA graph and replayed (its kernels' launches are counted at every
 replay), and held to the same run with the step eager and to the same
 runs with the absorb swapped for the unfused head-batched route and EMA.
 
+Then the center index (phase 12): ``predict(probes=0, 1)`` on the three
+fitted models and on a 16,384-center model (768 candidates a row) against
+the kernels' exact labels, the index rebuilt through save and restore,
+a layer's heads routed through their indexes, and ``clustered_decode``
+with ``probes=1`` equal to the clustered run; and the streaming fit
+(phase 13): ``fit(chunk=)`` on the three kinds (arrays, ragged chunk
+pieces, ``seed_cap=``, ``mesh=``) against the in-core fits bit for bit,
+with the pass's device memory, and ``GEEK.predict(batch=)``.
+
 All data is generated from a seed, not downloaded. It checks that each
 path launched its kernels, round-trips checkpoints, and reproduces the
 labels of models fitted and saved by the JAX reference
@@ -374,6 +383,17 @@ def sharded_check(name, est, data, model, res, fresh, mesh, kernels,
           f"centers, radius, k*={int(r_s.k_star)}, overflow equal the in-core "
           f"fit; make_predict_sharded equals predict; launches {launches}")
     return launches, fit_s
+
+
+def kept(model, res, cfg, data, fit_s, parts, fresh):
+    """What phases 12 and 13 need of a code-space path: its model, its
+    in-core result, its rows and fresh rows on the host."""
+    return dict(model=model, cfg=cfg, data=data, fit_s=fit_s,
+                parts=tuple(p.cpu().numpy() for p in parts),
+                fresh=tuple(p.cpu().numpy() for p in fresh),
+                labels=res.labels.cpu(), dists=res.dists.cpu(),
+                radius=model.radius.cpu(), centers=model.centers.cpu(),
+                center_valid=model.center_valid.cpu(), k_star=int(res.k_star))
 
 
 def purity(labels, truth, k_max, k_true=K_TRUE):
@@ -1150,6 +1170,24 @@ def kv_path(rt, dev, gen, all_kernels, int_rate):
     finally:
         kv.kops.flash_centroid_decode = real_decode
         kv.kops.l2_absorb_heads = real_absorb
+    # phase 12's decode check, here where the model lives: probes=1 at the
+    # default probe_min_k (256) with k_max 64 lets no head route probed, so
+    # the step keeps its graph and the run is the clustered run's
+    t0 = time.perf_counter()
+    probed = kv.clustered_decode(params, cfg, tokens, KV_PROMPT,
+                                 gcfg=kv.default_kv_config(KV_KMAX),
+                                 ema=KV_EMA, refresh_every=KV_REFRESH,
+                                 probes=1, device=dev)
+    torch.cuda.synchronize()
+    for key in ("nll", "k_stars", "overflows", "mean_k_star", "refreshes"):
+        if probed[key] != runs["clustered"][key]:
+            raise AssertionError(f"clustered_decode(probes=1): {key} differs "
+                                 "from the clustered run")
+    if not probed["cuda_graph"] or not runs["clustered"]["cuda_graph"]:
+        raise AssertionError("clustered_decode(probes=1) dropped the graph")
+    print(f"  (phase 12) clustered_decode(probes=1), probe_min_k 256 > k_max "
+          f"{KV_KMAX}: {time.perf_counter() - t0:.2f} s, graph kept, nll, k*, "
+          f"overflows and refreshes equal the clustered run's bit for bit")
     heads = cfg.num_layers * cfg.num_kv_heads
     per_run = cfg.num_layers * KV_DECODE
     clus = runs["clustered"]
@@ -1379,6 +1417,262 @@ def kv_path(rt, dev, gen, all_kernels, int_rate):
     rows[0]["max_abs_err"] = max(rows[0]["max_abs_err"], fit_abs_err)
     return {"flash_attention": lc["flash_attention"],
             "flash_centroid_attention": tiles}, rows
+
+
+# phase 12: probe counts of the predicts, the sub-linear regime's centers
+# drawn from the fit rows, and its index (8 tables of 32-position hops:
+# 768 candidates a row at probes=1)
+PROBES = (0, 1)
+SUBLIN_K, SUBLIN_TABLES, SUBLIN_BUCKET = 16_384, 8, 32
+# phase 13: rows a streamed chunk (dense: 64 MB of float32; codes: 8 to 10
+# chunks, the last ragged), the capped reservoir, and the batched predict
+CHUNK_DENSE, CHUNK_CODES, SEED_CAP, BATCH = 131_072, 262_144, 100_000, 65_536
+
+
+def probed_check(model, x, exact_lab, probes, what):
+    """Hold ``predict(model, x, probes=)`` to the exact labels: wherever the
+    exact argmin is among a row's candidates the labels agree, but at L2
+    near-ties (counted); Hamming models agree exactly, distances too.
+    Returns (hit share, near-ties, empty share, probed labels)."""
+    from repro_torch.core import model as M
+    lab, dst = M.predict(model, x, probes=probes)
+    _, _, empty = M.predict_probed(model, x, probes)
+    cand, mask = M.probe_candidates(model.center_index,
+                                    torch.as_tensor(x, device=model.device),
+                                    probes)
+    mask &= model.center_valid[cand]
+    hit = ((cand == exact_lab[:, None].long()) & mask).any(1)
+    del cand, mask
+    rows = (hit & (lab != exact_lab)).nonzero().flatten()
+    ties = 0
+    if model.metric == "l2":
+        xd = torch.as_tensor(x, device=model.device)[rows].double()
+        c = model.centers.double()
+        da_ = ((xd - c[lab[rows].long()]) ** 2).sum(1)
+        db_ = ((xd - c[exact_lab[rows].long()]) ** 2).sum(1)
+        tol = L2_RTOL * ((xd ** 2).sum(1) + (c[model.center_valid] ** 2)
+                         .sum(1).max())
+        if bool(((da_ - db_).abs() > tol).any()):
+            raise AssertionError(f"{what}: probed labels differ from exact "
+                                 "beyond near-ties where the argmin was probed")
+        ties = int(rows.numel())
+    elif rows.numel():
+        raise AssertionError(f"{what}: probed labels differ from exact where "
+                             "the argmin was probed")
+    if not bool(torch.isfinite(dst).all()):
+        raise AssertionError(f"{what}: a row kept no label (non-finite dist)")
+    return (float(hit.float().mean()), ties, float(empty.float().mean()),
+            lab)
+
+
+def index_phase(rt, dev, gen, kernels, dense, het, url):
+    """Phase 12: the center index on the card. ``dense`` / ``het`` /
+    ``url`` hold each kind's fitted model and fresh rows (phases 4, 7,
+    8). Returns the launches on its paths."""
+    from repro_torch.core import model as M
+    from repro_torch.kernels import distance_argmin as da
+    phase("12 center index: predict(probes=) on the card")
+    total = {k.__name__: 0 for k in kernels}
+
+    def counted(fn):
+        reset_launches(*kernels)
+        out = fn()
+        torch.cuda.synchronize()
+        for k in kernels:
+            total[k.__name__] += k.launches
+        return out, {k.__name__: k.launches for k in kernels}
+
+    model, x = dense["model"], dense["x_new"]
+    exact, _ = rt.predict(model, x)
+    exact_ms = cuda_ms(lambda: rt.predict(model, x), 10)
+    for p in PROBES:
+        (hit, ties, empty, _), n_l = counted(
+            lambda: probed_check(model, x, exact, p, f"dense probes={p}"))
+        ms = cuda_ms(lambda: rt.predict(model, x, probes=p), 5)
+        print(f"  dense k_max {model.k_max} ({int(model.k_star)} valid), "
+              f"{N_FRESH:,} fresh rows, probes={p}: "
+              f"{M._probe_width(model.center_index, p) * model.index_tables} "
+              f"candidates a row, argmin probed {hit:.4f}, near-ties {ties}, "
+              f"empty probes {empty:.4f}; L2 launches (exact fallback) "
+              f"{n_l['distance_argmin_l2']}; {ms:.3f} ms against exact "
+              f"{exact_ms:.3f} ms")
+    # the sub-linear regime: many valid centers, a narrow window
+    pick = np.random.default_rng(12).permutation(
+        dense["x_fit"].shape[0])[:SUBLIN_K]
+    cen = torch.as_tensor(dense["x_fit"][pick], device=dev)
+    big = M.build_model(cen, torch.ones(SUBLIN_K, dtype=torch.bool,
+                                         device=dev),
+                         torch.tensor(SUBLIN_K, dtype=torch.int32, device=dev),
+                         torch.zeros(SUBLIN_K, device=dev), metric="l2",
+                         index_tables=SUBLIN_TABLES,
+                         index_bucket=SUBLIN_BUCKET)
+    (exact_big, _), _ = counted(lambda: rt.predict(big, x))
+    (hit, ties, empty, lab), n_l = counted(
+        lambda: probed_check(big, x, exact_big, 1, "sub-linear probes=1"))
+    recall = float((lab == exact_big).float().mean())
+    ms = cuda_ms(lambda: rt.predict(big, x, probes=1), 3)
+    big_ms = cuda_ms(lambda: rt.predict(big, x), 5)
+    cands = M._probe_width(big.center_index, 1) * SUBLIN_TABLES
+    print(f"  sub-linear: {SUBLIN_K:,} valid centers from the fit rows, "
+          f"{cands} candidates a row ({cands / SUBLIN_K:.1%} of k), probes=1:"
+          f" recall {recall:.4f} against the L2 kernel's labels, argmin "
+          f"probed {hit:.4f}, near-ties {ties}, empty {empty:.4f}, fallback "
+          f"L2 launches {n_l['distance_argmin_l2']}; {ms:.3f} ms against "
+          f"exact {big_ms:.3f} ms")
+    del big, cen, exact_big, lab
+    het["kernel"] = "distance_argmin_hamming"
+    url["kernel"] = "distance_argmin_hamming_packed"
+    for name, kind in (("hetero", het), ("sparse", url)):
+        est, m_ = rt.GEEK(kind["cfg"]), kind["model"]
+        codes = m_.encode(*parts_on(kind["fresh"], dev))
+        (ex, _), _ = counted(lambda: rt.predict(m_, codes))
+        for p in PROBES:
+            (hit, _, empty, _), n_l = counted(
+                lambda: probed_check(m_, codes, ex, p, f"{name} probes={p}"))
+            path = kind["kernel"]
+            print(f"  {name} ({m_.impl}, k* {int(m_.k_star)}), probes={p}: "
+                  f"labels and distances equal the exact ones wherever the "
+                  f"argmin was probed ({hit:.4f} of rows), empty probes "
+                  f"{empty:.4f}; {path} launches (exact fallback) "
+                  f"{n_l[path]}")
+        lab_f, _ = est.predict(kind["data"](*kind["fresh"]), model=m_,
+                               probes=1)
+        if not torch.equal(lab_f, M.predict(m_, codes, probes=1)[0]):
+            raise AssertionError(f"{name}: GEEK.predict(probes=1) differs")
+    for name, m_ in (("dense", model), ("hetero", het["model"]),
+                     ("sparse", url["model"])):
+        with tempfile.TemporaryDirectory() as tmp:
+            rt.save_model(tmp, m_)
+            back = rt.restore_model(tmp)
+        a, b = back.center_index, m_.center_index
+        if not (torch.equal(a.sorted_keys, b.sorted_keys)
+                and torch.equal(a.sorted_ids, b.sorted_ids)):
+            raise AssertionError(f"{name}: the restored index differs")
+    print("  save -> restore on the card: the rebuilt indexes' sorted keys "
+          "and ids equal the fitted ones bit for bit (dense, hetero, sparse)")
+    # a layer's heads routed through their indexes
+    from repro_torch.serve import kv_cluster as kv
+    H, n, hd = 8, 2048, 64
+    cent = torch.randn((H, 32, hd), generator=gen, device=dev)
+    keys = (cent[:, torch.randint(0, 32, (n,), generator=gen, device=dev)]
+            + 0.1 * torch.randn((H, n, hd), generator=gen, device=dev))
+    lay = kv.LayerKVCluster(H, hd, kv.default_kv_config(KV_KMAX), probes=1,
+                            probe_min_k=1, device=dev)
+    lay.start(keys.transpose(0, 1), keys.transpose(0, 1))
+    new = keys[:, :256] + 0.05 * torch.randn((H, 256, hd), generator=gen,
+                                             device=dev)
+    if lay.probed_heads() != list(range(H)):
+        raise AssertionError(f"probed heads {lay.probed_heads()}")
+    got = lay.route(new)
+    ties = 0
+    for h in range(H):
+        m_ = lay.head_model(h)
+        want, _ = rt.predict(m_, new[h])
+        _, t, _, lab = probed_check(m_, new[h], want, 1, f"head {h}")
+        ties += t
+        if not torch.equal(lab, got[h]):
+            raise AssertionError(f"head {h}: route differs from predict")
+    print(f"  LayerKVCluster(probes=1, probe_min_k=1), {H} heads, k* "
+          f"{lay.k_stars}: each head's route is its model's probed predict, "
+          f"equal to the exact labels where the argmin was probed (near-ties "
+          f"{ties})")
+    print(f"  launches on the phase's paths {total}")
+    return total
+
+
+def parts_on(parts, dev):
+    """Host parts as tensors on ``dev`` (None kept)."""
+    return tuple(None if p is None else torch.as_tensor(p, device=dev)
+                 for p in parts)
+
+
+def stream_phase(rt, dev, kernels, mesh, dense, het, url):
+    """Phase 13: the streaming fit on the card, against the in-core fits
+    of phases 4, 7 and 8 (``dense`` / ``het`` / ``url``: their results on
+    the host, their data as host arrays). Returns the launches on its
+    paths."""
+    phase("13 streaming fit: fit(chunk=) on the card")
+    total = {k.__name__: 0 for k in kernels}
+
+    def fit(kind, est, data, **kw):
+        reset_launches(*kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m_ = est.fit(data, 0, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for k in kernels:
+            total[k.__name__] += k.launches
+        return m_, est.result_, wall, {k.__name__: k.launches
+                                       for k in kernels}
+
+    def same(res, m_, want, what):
+        for f in ("labels", "dists"):
+            if not torch.equal(getattr(res, f).cpu(), want[f]):
+                raise AssertionError(f"{what}: {f} differ from the in-core fit")
+        for f in ("radius", "centers", "center_valid"):
+            if not torch.equal(getattr(m_, f).cpu(), want[f]):
+                raise AssertionError(f"{what}: {f} differ from the in-core fit")
+        if int(res.k_star) != want["k_star"]:
+            raise AssertionError(f"{what}: k* differs from the in-core fit")
+
+    x = dense["x_fit"]
+    est = rt.GEEK(dense["cfg"])
+    m_, res, wall, n_l = fit("dense", est, rt.DenseData(x),
+                             chunk=CHUNK_DENSE)
+    same(res, m_, dense, "dense chunk=")
+    peak = est.stream_peak_bytes_
+    print(f"  dense {x.shape[0]:,} x {x.shape[1]}, chunk {CHUNK_DENSE:,}, "
+          f"seed_cap=None: {wall:.3f} s (in-core {dense['fit_s']:.3f} s); "
+          f"equal to the in-core fit bit for bit; the assignment pass's "
+          f"peak device memory above what it began with (peak reset after "
+          f"discovery) {peak / 2**20:.1f} MiB (in-core fit's peak "
+          f"{dense['peak_gb'] * 1024:.1f} MiB; dataset "
+          f"{x.nbytes / 2**20:.1f} MiB); launches {n_l}")
+    if peak >= x.nbytes / 2:
+        raise AssertionError("the pass held more than half the dataset")
+    cuts = np.cumsum([0] + [97_003, 250_000, 1, 180_113] * 4)
+    cuts = np.append(cuts[cuts < x.shape[0]], x.shape[0])
+    m_, res, wall, n_l = fit("dense", est, rt.DenseData(chunks=(
+        x[a:b] for a, b in zip(cuts[:-1], cuts[1:]))), chunk=CHUNK_DENSE)
+    same(res, m_, dense, "dense chunk iterator")
+    print(f"  the same rows as {len(cuts) - 1} ragged pieces: {wall:.3f} s, "
+          f"equal to the in-core fit")
+    m_, res, wall, n_l = fit("dense", est, rt.DenseData(x),
+                             chunk=CHUNK_DENSE, seed_cap=SEED_CAP)
+    want, _ = rt.predict(m_, x)
+    if int(res.k_star) <= 0 or not torch.equal(res.labels, want.cpu()):
+        raise AssertionError("seed_cap: k* = 0 or labels differ from predict")
+    ids = res.seeds.id[res.seeds.valid]
+    print(f"  seed_cap={SEED_CAP:,}: {wall:.3f} s, k*={int(res.k_star)}, "
+          f"labels equal predict(model, x); seed ids are dataset rows "
+          f"({int(ids.min())}..{int(ids.max())}); launches {n_l}")
+    m_, res, wall, n_l = fit("dense", est, rt.DenseData(x),
+                             chunk=CHUNK_DENSE, mesh=mesh)
+    same(res, m_, dense, "dense chunk= mesh=")
+    print(f"  chunk= with mesh= (one-rank NCCL group): {wall:.3f} s, equal to "
+          f"the in-core fit")
+    for name, kind in (("hetero", het), ("sparse", url)):
+        est_ = rt.GEEK(kind["cfg"])
+        m_, res, wall, n_l = fit(name, est_, kind["data"](*kind["parts"]),
+                                 chunk=CHUNK_CODES)
+        same(res, m_, kind, f"{name} chunk=")
+        print(f"  {name} {res.labels.numel():,} rows, chunk {CHUNK_CODES:,}: "
+              f"{wall:.3f} s (in-core {kind['fit_s']:.3f} s), equal to the "
+              f"in-core fit bit for bit; the pass's peak "
+              f"{est_.stream_peak_bytes_ / 2**20:.1f} MiB; launches {n_l}")
+    rows = x[:300_000]
+    model = dense["model"]
+    for kw in (dict(), dict(probes=1)):
+        full, fd = est.predict(rt.DenseData(rows), model=model, **kw)
+        part, pd = est.predict(rt.DenseData(rows), model=model, batch=BATCH,
+                               **kw)
+        if not (torch.equal(full.cpu(), part) and torch.equal(fd.cpu(), pd)):
+            raise AssertionError(f"predict(batch=) differs, {kw}")
+    print(f"  GEEK.predict(batch={BATCH:,}) and (batch=, probes=1) on "
+          f"{rows.shape[0]:,} rows equal their unbatched calls")
+    print(f"  launches on the phase's paths {total}")
+    return total
 
 
 T0 = time.perf_counter()
@@ -1739,7 +2033,16 @@ def run_paths(rt, dev, gen, card, int_rate, popc_rate, data, x_fit, x_new,
         raise AssertionError("reference fixture labels not reproduced")
     print(f"  reference fixture (k_max={ref_model.k_max}, d={ref_model.d}): "
           f"{q.shape[0]} labels reproduced, near-ties {rows.numel()}")
-    del data, x_fit, x_new, model, res, est, back, lab_fit, lab_new
+    # what phases 12 and 13 hold the index and the streaming fit to: the
+    # fitted model and estimator, the in-core result and the rows (host)
+    dense = dict(model=model, cfg=cfg, x_new=x_new,
+                 x_fit=x_fit.cpu().numpy(), fit_s=dense_fit_s,
+                 peak_gb=peak_gb, labels=res.labels.cpu(),
+                 dists=res.dists.cpu(), radius=model.radius.cpu(),
+                 centers=model.centers.cpu(),
+                 center_valid=model.center_valid.cpu(),
+                 k_star=int(res.k_star))
+    del data, x_fit, res, back, lab_fit, lab_new
     torch.cuda.empty_cache()
 
     phase("6 Hamming kernels vs plain (bit-exact)")
@@ -1833,6 +2136,9 @@ def run_paths(rt, dev, gen, card, int_rate, popc_rate, data, x_fit, x_new,
         rt.HeteroData(h.x_num[N_HET:], h.x_cat[N_HET:]),
         h.true_labels[:N_HET], h.true_labels[N_HET:], K_HET,
         dh.distance_argmin_hamming)
+    het = kept(het_model, het_est.result_, het_cfg, rt.HeteroData, het_fit_s,
+               (h.x_num[:N_HET], h.x_cat[:N_HET]),
+               (h.x_num[N_HET:], h.x_cat[N_HET:]))
     # the equality kernel at the path's own inputs: the coded fit rows and
     # the fitted modes (k* of k_max valid: the work the data needs)
     codes = het_model.encode(h.x_num[:N_HET], h.x_cat[:N_HET])
@@ -1882,6 +2188,9 @@ def run_paths(rt, dev, gen, card, int_rate, popc_rate, data, x_fit, x_new,
         rt.SparseData(u.sets[N_URL:], u.mask[N_URL:]),
         u.true_labels[:N_URL], u.true_labels[N_URL:], K_URL,
         dh.distance_argmin_hamming_packed)
+    url = kept(url_model, url_est.result_, url_cfg, rt.SparseData, url_fit_s,
+               (u.sets[:N_URL], u.mask[:N_URL]),
+               (u.sets[N_URL:], u.mask[N_URL:]))
     # the packed kernel at the path's own inputs: the fit rows' packed DOPH
     # codes (int32 words, as predict packs them) and the fitted modes
     bits, d_ = url_model.code_bits, url_model.d
@@ -1965,11 +2274,21 @@ def run_paths(rt, dev, gen, card, int_rate, popc_rate, data, x_fit, x_new,
     torch.cuda.empty_cache()
     flash_rows = flash_phase(dev, gen)
     kv_launch, decode_rows = kv_path(rt, dev, gen, all_kernels, int_rate)
+    torch.cuda.empty_cache()
+    new_paths = index_phase(rt, dev, gen, all_kernels, dense, het, url)
+    del dense["x_new"]
+    torch.cuda.empty_cache()
+    for k, v in stream_phase(rt, dev, all_kernels, mesh, dense, het,
+                             url).items():
+        new_paths[k] += v
+    print(f"  launches on the new paths (phases 12 and 13) {new_paths}, "
+          "added to the kernels line")
     kernels = [
         {"name": "distance_argmin_l2", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/distance_argmin.cu",
          "replaces": "src/repro/kernels/distance_argmin.py:188",
-         "launches": launches["l2"], "max_abs_err": l2_err, "ms": l2_ms,
+         "launches": launches["l2"] + new_paths["distance_argmin_l2"],
+         "max_abs_err": l2_err, "ms": l2_ms,
          "plain_ms": l2_plain_ms, "bound_ms": l2_bound, "bound_by": l2_by,
          "library_ms": l2_lib_ms},
         {"name": "distance_argmin_l2_accumulate", "route": "cuda",
@@ -1981,20 +2300,23 @@ def run_paths(rt, dev, gen, card, int_rate, popc_rate, data, x_fit, x_new,
         {"name": "distance_argmin_hamming", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/distance_argmin_hamming.cu",
          "replaces": "src/repro/kernels/distance_argmin.py:278",
-         "launches": het_launch["distance_argmin_hamming"],
+         "launches": (het_launch["distance_argmin_hamming"]
+                      + new_paths["distance_argmin_hamming"]),
          "max_abs_err": ham_err, "ms": eq_ms, "plain_ms": eq_plain_ms,
          "bound_ms": eq_bound, "bound_by": eq_by, "library_ms": eq_lib_ms},
         {"name": "distance_argmin_hamming_packed", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/distance_argmin_hamming.cu",
          "replaces": "src/repro/kernels/distance_argmin.py:370",
-         "launches": url_launch["distance_argmin_hamming_packed"],
+         "launches": (url_launch["distance_argmin_hamming_packed"]
+                      + new_paths["distance_argmin_hamming_packed"]),
          "max_abs_err": packed_err, "ms": pk_ms, "plain_ms": pk_plain_ms,
          "bound_ms": pk_bound, "bound_by": pk_by, "library_ms": None},
         {"name": "minhash_even_buckets", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/minhash_buckets.cu",
          "replaces": "src/repro/kernels/minhash_buckets.py:58",
          "launches": (launches["minhash"] + het_launch["minhash_segments"]
-                      + url_launch["minhash_segments"]),
+                      + url_launch["minhash_segments"]
+                      + new_paths["minhash_segments"]),
          "max_abs_err": mh_err, "ms": mh_ms,
          "plain_ms": mh_plain_ms, "bound_ms": mh_bound, "bound_by": mh_by,
          "library_ms": None},

@@ -14,6 +14,7 @@ metadata -> a ``GeekModel`` on a device.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -25,6 +26,7 @@ from repro_torch.core import model as model_mod
 from repro_torch.core import transform as transform_mod
 from repro_torch.utils import compat
 from repro_torch.utils.device import resolve_device
+from repro_torch.utils.hashing import derive_hash_keys_from_key
 
 #: dtypes of the canonical leaves, as the reference writes them; centers
 #: are float32 centroids for l2 and int32 mode codes for hamming
@@ -91,12 +93,18 @@ def _latest_step(directory: str) -> int:
 
 
 def model_from_numpy(arrays: dict[str, np.ndarray], meta: dict,
-                     device) -> model_mod.GeekModel:
+                     device, *, index_hashers: tuple | None = None
+                     ) -> model_mod.GeekModel:
     """Build a GeekModel on ``device`` from host arrays and metadata.
 
     ``arrays`` holds the canonical fields (``model.ARRAY_FIELDS``) and
     any ``transform_``-prefixed leaves; ``meta`` is the manifest's
-    ``extra`` blob (``{"meta": ..., "transform": ...}``).
+    ``extra`` blob (``{"meta": ..., "transform": ...}``). The center
+    index is rebuilt, as the reference rebuilds it on restore: from the
+    port's own hash functions, or from ``index_hashers``, the
+    reference's ``CenterIndex.hashers`` as numpy (l2: ``(proj,)``;
+    hamming: the raw ``(item_key, sig_keys)``), so an index can be built
+    on the reference's projection.
     """
     dev = resolve_device(device)
     transform = None
@@ -111,7 +119,7 @@ def model_from_numpy(arrays: dict[str, np.ndarray], meta: dict,
     def t(name):
         return torch.as_tensor(np.asarray(arrays[name]), device=dev)
 
-    return model_mod.build_model(
+    model = model_mod.build_model(
         t("centers").to(_CENTER_DTYPES[m["metric"]][1]),
         t("center_valid").to(torch.bool),
         t("k_star").to(torch.int32), t("radius").to(torch.float32),
@@ -121,6 +129,18 @@ def model_from_numpy(arrays: dict[str, np.ndarray], meta: dict,
         seeder_id=m.get("seeder_id", ""),
         index_tables=m.get("index_tables", 8),
         index_bucket=m.get("index_bucket", 32))
+    if index_hashers is None or model.center_index is None:
+        return model
+    if m["metric"] == "l2":
+        hashers = (torch.as_tensor(np.array(index_hashers[0])),)
+    else:
+        item_key, sig_keys = index_hashers
+        hashers = (derive_hash_keys_from_key(np.asarray(item_key), (1,)),
+                   torch.from_numpy(np.asarray(sig_keys).astype(np.int64)))
+    return dataclasses.replace(model, center_index=model_mod.build_center_index(
+        model.centers, model.center_valid, metric=model.metric,
+        tables=model.index_tables, bucket=model.index_bucket,
+        hashers=hashers))
 
 
 def restore_model(directory: str, *, step: int | None = None,

@@ -3,9 +3,8 @@
 Re-exports the names of ``repro.core.__all__`` that the port has, so that
 ``from repro_torch.core import GEEK`` works where ``from repro.core import
 GEEK`` does; the surface is locked by ``tests/test_torch_api_surface.py``.
-Not ported yet, so not exported: ``CenterIndex``, ``build_center_index``,
-``predict_probed`` and ``patch_probed_fallback`` (ROADMAP.md, Queue 1
-item 9), ``KMeansPPSeeder`` and ``ScalableKMeansPPSeeder`` (item 10).
+Not ported yet, so not exported: ``KMeansPPSeeder`` and
+``ScalableKMeansPPSeeder`` (ROADMAP.md, Queue 1 item 10).
 """
 from repro_torch.core.api import (  # noqa: F401
     GEEK,
@@ -20,10 +19,14 @@ from repro_torch.core.api import (  # noqa: F401
 )
 from repro_torch.core.geek import GeekConfig, GeekResult  # noqa: F401
 from repro_torch.core.model import (  # noqa: F401
+    CenterIndex,
     GeekModel,
     NumericDiscretizer,
+    build_center_index,
     build_model,
+    patch_probed_fallback,
     predict,
+    predict_probed,
     update_centers,
 )
 from repro_torch.core.silk import SeedPairs, Seeds, silk_seeding  # noqa: F401
@@ -35,6 +38,7 @@ from repro_torch.core.transform import (  # noqa: F401
 
 #: the ported public surface (sorted; locked by tests/test_torch_api_surface.py)
 __all__ = [
+    "CenterIndex",
     "DenseData",
     "GEEK",
     "GeekConfig",
@@ -52,9 +56,12 @@ __all__ = [
     "SparseData",
     "SparseTransform",
     "as_dataset",
+    "build_center_index",
     "build_model",
     "discover",
+    "patch_probed_fallback",
     "predict",
+    "predict_probed",
     "silk_seeding",
     "update_centers",
 ]

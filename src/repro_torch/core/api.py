@@ -28,9 +28,11 @@ default (``core.distributed.discover_sharded``), bit-identical to the
 in-core fit, or discovery on an all-gathered reservoir
 (``discovery="gathered"``, and ``seed_cap=``).
 
-Not ported yet, and refused with ``NotImplementedError``: ``chunk=`` and
-chunk iterators (ROADMAP.md Queue 1 item 11), ``batch=`` (item 13) and
-``probes=`` (item 9).
+``chunk=`` is the out-of-core fit (``core.streaming``): discovery on a
+reservoir of at most ``seed_cap`` rows, then the assignment pass streamed
+over host chunks (arrays, or a ``chunks=`` iterator), with or without
+``mesh=``. ``predict(probes=)`` probes the model's center index, and
+``predict(batch=)`` serves in batches of that many rows.
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ import math
 import warnings
 from typing import Any, ClassVar
 
+import numpy as np
 import torch
 
 from repro_torch.core import assign as assign_mod
@@ -50,19 +53,15 @@ from repro_torch.core.geek import (GeekConfig, GeekResult, _seed_codes,
                                    _seed_dense, hetero_code_bits,
                                    make_hetero_transform,
                                    make_sparse_transform)
-from repro_torch.core.model import GeekModel
+from repro_torch.core.model import (GeekModel, NumericDiscretizer,
+                                    quantile_boundaries)
 from repro_torch.core.model import predict as model_predict
 from repro_torch.core.silk import Seeds, silk_seeding
-from repro_torch.core.transform import IdentityTransform
+from repro_torch.core.transform import HeteroTransform, IdentityTransform
 from repro_torch.utils import compat
 from repro_torch.utils.device import (full_precision_matmul, parts_to_device,
                                       resolve_device)
 from repro_torch.utils.hashing import derive_hash_keys
-
-
-def _not_ported(what: str, item: int):
-    return NotImplementedError(f"{what} is not ported yet "
-                               f"(ROADMAP.md, Queue 1 item {item})")
 
 
 # ---------------------------------------------------------------------------
@@ -73,8 +72,9 @@ def _not_ported(what: str, item: int):
 class DenseData:
     """Homogeneous dense rows (Euclidean metric, paper Algorithm 1).
 
-    ``x`` is an (n, d) array or tensor; ``chunks`` (streaming) is not
-    ported yet.
+    ``x`` is an (n, d) array or tensor; ``chunks``, an iterable of (m_i,
+    d) host chunks for the streaming fit (``fit(..., chunk=)``), in place
+    of ``x``.
     """
 
     x: Any = None
@@ -83,12 +83,21 @@ class DenseData:
 
     @property
     def parts(self) -> tuple:
-        """In-core part tuple ``(x,)``."""
+        """In-core part tuple ``(x,)``; a chunk iterator has none."""
         if self.chunks is not None:
-            raise _not_ported("a chunk-iterator dataset (streaming fit)", 11)
+            if self.x is not None:
+                raise ValueError("pass exactly one of x / chunks")
+            raise ValueError("chunk-iterator dataset has no in-core parts; "
+                             "fit it with chunk= (streaming)")
         if self.x is None:
             raise ValueError("dense data needs x")
         return (self.x,)
+
+    def payload(self):
+        """The raw fit input (array or chunk iterator) for streaming."""
+        if (self.x is None) == (self.chunks is None):
+            raise ValueError("pass exactly one of x / chunks")
+        return self.x if self.x is not None else self.chunks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,7 +106,8 @@ class HeteroData:
 
     ``x_num`` (n, d_num) floats, quantile-discretized by the fitted
     transform, and/or ``x_cat`` (n, d_cat) integer categories; at least
-    one must be present. ``chunks`` (streaming) is not ported yet.
+    one must be present. ``chunks``, an iterable of ``(x_num_i,
+    x_cat_i)`` pairs for the streaming fit, in place of the arrays.
     """
 
     x_num: Any = None
@@ -109,10 +119,19 @@ class HeteroData:
     def parts(self) -> tuple:
         """In-core part tuple ``(x_num, x_cat)`` (either may be None)."""
         if self.chunks is not None:
-            raise _not_ported("a chunk-iterator dataset (streaming fit)", 11)
+            raise ValueError("chunk-iterator dataset has no in-core parts; "
+                             "fit it with chunk= (streaming)")
         if self.x_num is None and self.x_cat is None:
             raise ValueError("hetero data needs x_num and/or x_cat")
         return (self.x_num, self.x_cat)
+
+    def payload(self):
+        """The raw fit input (part tuple or chunk iterator) for streaming."""
+        if self.chunks is not None:
+            if self.x_num is not None or self.x_cat is not None:
+                raise ValueError("pass arrays OR chunks, not both")
+            return self.chunks
+        return self.parts
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,7 +139,8 @@ class SparseData:
     """Sparse sets (Jaccard metric via DOPH, paper Algorithm 3).
 
     ``sets`` (n, s_max) integer items, padded; ``mask`` (n, s_max) bool,
-    True for real items. ``chunks`` (streaming) is not ported yet.
+    True for real items. ``chunks``, an iterable of ``(sets_i, mask_i)``
+    pairs for the streaming fit, in place of the arrays.
     """
 
     sets: Any = None
@@ -132,10 +152,19 @@ class SparseData:
     def parts(self) -> tuple:
         """In-core part tuple ``(sets, mask)``."""
         if self.chunks is not None:
-            raise _not_ported("a chunk-iterator dataset (streaming fit)", 11)
+            raise ValueError("chunk-iterator dataset has no in-core parts; "
+                             "fit it with chunk= (streaming)")
         if self.sets is None or self.mask is None:
             raise ValueError("sparse data needs both sets and mask")
         return (self.sets, self.mask)
+
+    def payload(self):
+        """The raw fit input (part tuple or chunk iterator) for streaming."""
+        if self.chunks is not None:
+            if self.sets is not None or self.mask is not None:
+                raise ValueError("pass arrays OR chunks, not both")
+            return self.chunks
+        return self.parts
 
 
 Dataset = DenseData | HeteroData | SparseData
@@ -204,12 +233,19 @@ class LSHBucketer:
         return tkeys, bkeys, table_keys
 
     def fit_transform(self, kind: str, parts: tuple, tkeys,
-                      cfg: GeekConfig):
-        """Fit the persistent raw→space transform for one kind."""
+                      cfg: GeekConfig, *, boundaries=None):
+        """Fit the persistent raw→space transform for one kind.
+
+        ``boundaries`` replaces the hetero quantile fit (the streaming
+        fit's ``boundaries="exact"``, from every row)."""
         if kind == "dense":
             return IdentityTransform()
         if kind == "hetero":
-            return make_hetero_transform(parts[0], cfg.t_cat)
+            x_num = parts[0]
+            if (boundaries is not None and x_num is not None
+                    and x_num.shape[1] > 0):
+                return HeteroTransform(NumericDiscretizer(boundaries))
+            return make_hetero_transform(x_num, cfg.t_cat)
         return make_sparse_transform(tkeys, cfg)
 
     def buckets(self, kind: str, space: torch.Tensor, bkeys: tuple,
@@ -283,17 +319,19 @@ class KernelAssigner:
 # ---------------------------------------------------------------------------
 
 def discover(kind: str, parts: tuple, cfg: GeekConfig, bucketer, seeder, *,
-             tkeys, bkeys: tuple, skeys: torch.Tensor, code=None):
+             tkeys, bkeys: tuple, skeys: torch.Tensor, code=None,
+             boundaries=None):
     """Stage 1 + 2: fit the transform, bucket, seed.
 
     ``tkeys`` / ``bkeys`` / ``skeys`` are the drawn arrays
     (``LSHBucketer.split_key``). ``code`` optionally replaces the
     default ``transform(*parts)`` with ``code(transform, parts)`` (the
     gathered sparse fit codes each rank's rows and gathers the narrow
-    codes, not the raw sets). Returns ``(transform, space, seeds,
-    overflow)``.
+    codes, not the raw sets). ``boundaries`` goes to the bucketer's
+    ``fit_transform``. Returns ``(transform, space, seeds, overflow)``.
     """
-    transform = bucketer.fit_transform(kind, parts, tkeys, cfg)
+    transform = bucketer.fit_transform(kind, parts, tkeys, cfg,
+                                       boundaries=boundaries)
     space = transform(*parts) if code is None else code(transform, parts)
     buckets = bucketer.buckets(kind, space, bkeys, cfg)
     seeds, overflow = seeder.seed(space, buckets, skeys, cfg)
@@ -317,6 +355,22 @@ def _fit_incore(parts: tuple, keys: tuple, *, cfg: GeekConfig, kind: str,
     result = GeekResult(labels, dists, model.centers, model.center_valid,
                         seeds.k_star, radius, seeds, overflow)
     return result, dataclasses.replace(model, radius=radius)
+
+
+def _seed_reservoir(parts: tuple, keys: tuple, boundaries, *,
+                    cfg: GeekConfig, kind: str, bucketer, seeder, assigner):
+    """Discovery on a streaming reservoir: the in-core pipeline minus the
+    n-sized pass (``core.streaming`` streams it). Returns ``(model,
+    seeds, overflow)``; the reservoir's coded space is freed on return."""
+    tkeys, bkeys, skeys = keys
+    transform, space, seeds, overflow = discover(
+        kind, parts, cfg, bucketer, seeder, tkeys=tkeys, bkeys=bkeys,
+        skeys=skeys, boundaries=boundaries)
+    model = assigner.build(space, seeds, cfg, metric=bucketer.metric(kind),
+                           bits=bucketer.code_bits(kind, parts, cfg),
+                           transform=transform, bucketer_id=bucketer.name,
+                           seeder_id=seeder.name)
+    return model, seeds, overflow
 
 
 # ---------------------------------------------------------------------------
@@ -482,6 +536,7 @@ class GEEK:
         self.assigner = KernelAssigner() if assigner is None else assigner
         self.model_: GeekModel | None = None
         self.result_: GeekResult | None = None
+        self.stream_peak_bytes_: int | None = None
 
     def _generator(self, seed) -> torch.Generator:
         if isinstance(seed, torch.Generator):
@@ -493,6 +548,7 @@ class GEEK:
 
     def fit(self, data, seed, *, mesh=None, mesh_axis: str = "data",
             chunk: int | None = None, seed_cap: int | None = None,
+            boundaries: str = "reservoir",
             discovery: str | None = None) -> GeekModel:
         """Fit the pipeline on one dataset.
 
@@ -513,12 +569,26 @@ class GEEK:
         mesh_axis : str
             The mesh's axis name (checked).
         chunk : int or None
-            The streaming fit: not ported yet.
+            Stream the assignment pass over host chunks of this many
+            rows (``core.streaming``): the pass's device memory is
+            bounded by the chunk, not by n. ``data`` may then be a
+            chunk iterator (``DenseData(chunks=...)``). With ``mesh=``
+            each chunk is split over the ranks (``chunk`` a multiple of
+            the ranks). The result's labels and dists are host tensors,
+            and ``stream_peak_bytes_`` holds the pass's device memory
+            on the card: its peak above what was allocated when it began
+            (None on the CPU).
         seed_cap : int or None
-            Sharded fits only: at most this many reservoir rows for
-            gathered discovery (``None`` keeps all of them).
+            Streaming or sharded fits: at most this many reservoir rows
+            for discovery (``None`` keeps all of them: the in-core fit's
+            seeds, centers and labels, bit for bit).
+        boundaries : {"reservoir", "exact"}
+            Hetero streaming fits only: quantile boundaries from the
+            reservoir, or from every row (a second host pass over the
+            numeric columns).
         discovery : {None, "sharded", "gathered"}
-            Sharded fits only, as in the reference: ``None`` (auto)
+            Sharded fits without ``chunk`` only, as in the reference:
+            ``None`` (auto)
             distributes SILK discovery, bit-identical to the in-core fit,
             and falls back to "gathered" with a ``UserWarning`` naming
             the reasons when ``seed_cap`` subsamples or a custom
@@ -533,10 +603,22 @@ class GEEK:
             ``GeekResult`` lands in ``result_``, its labels and dists
             global (n,) on every rank).
         """
-        if chunk is not None:
-            raise _not_ported("the streaming fit (chunk=)", 11)
         data = as_dataset(data)
+        if boundaries not in ("reservoir", "exact"):
+            raise ValueError(f"boundaries must be 'reservoir' or 'exact', "
+                             f"got {boundaries!r}")
+        if boundaries == "exact" and not (chunk is not None
+                                          and data.kind == "hetero"):
+            raise ValueError(
+                "boundaries='exact' only applies to hetero streaming fits "
+                "(chunk=...); in-core and sharded fits with seed_cap=None "
+                "use exact boundaries already")
         full_precision_matmul()
+        if chunk is not None:
+            result, model = self._fit_streaming(data, seed, chunk, seed_cap,
+                                                boundaries, mesh, mesh_axis)
+            self.result_, self.model_ = result, model
+            return model
         parts = parts_to_device(data.parts, self.device)
         if data.kind == "dense":
             parts = (parts[0].to(torch.float32),)
@@ -557,6 +639,42 @@ class GEEK:
                                         assigner=self.assigner)
         self.result_, self.model_ = result, model
         return model
+
+    def _fit_streaming(self, data, seed, chunk, seed_cap, boundaries, mesh,
+                       mesh_axis):
+        """Out-of-core fit: reservoir discovery + the streamed pass."""
+        from repro_torch.core import streaming as stream_mod
+        cfg, kind = self.cfg, data.kind
+        if mesh is not None:
+            compat.check_device(mesh, self.device, mesh_axis)
+        stream_mod._check_mesh_chunk(mesh, chunk)
+        nparts = 1 if kind == "dense" else 2
+        chunks, n, whole = stream_mod._collect(data.payload(), nparts, chunk)
+        if kind == "sparse" and (chunks[0][0] is None or chunks[0][1] is None):
+            raise ValueError("sparse streaming needs both sets and mask")
+        sample, sample_idx = stream_mod._stride_sample(chunks, n, seed_cap,
+                                                       whole)
+        bounds = None
+        if boundaries == "exact" and chunks[0][0] is not None:
+            # every row's numeric columns, sorted on the host: the values
+            # NumericDiscretizer.fit would pick on the device
+            num = (whole[0] if whole is not None
+                   else np.concatenate([c[0] for c in chunks], axis=0))
+            num = torch.from_numpy(np.ascontiguousarray(num, np.float32))
+            bounds = quantile_boundaries(torch.sort(num, dim=0).values,
+                                         cfg.t_cat).to(self.device)
+        present = parts_to_device(sample, self.device)
+        d = next(p for p in present if p is not None).shape[1]
+        keys = self.bucketer.split_key(kind, self._generator(seed), d, cfg)
+        model, seeds, overflow = _seed_reservoir(
+            present, keys, bounds, cfg=cfg, kind=kind,
+            bucketer=self.bucketer, seeder=self.seeder,
+            assigner=self.assigner)
+        del present, sample     # the reservoir's device copy goes here
+        result, model, self.stream_peak_bytes_ = stream_mod._streamed_fit(
+            chunks, n, cfg, chunk, model, seeds, overflow, sample_idx,
+            assigner=self.assigner, mesh=mesh)
+        return result, model
 
     def _fit_sharded(self, kind, parts, seed, mesh, mesh_axis, seed_cap,
                      discovery):
@@ -604,17 +722,57 @@ class GEEK:
         on every rank, same global rows) each rank assigns its rows and
         every rank gets the global labels
         (``core.distributed.make_predict_sharded``), bit-identical to
-        the unsharded predict."""
-        if batch is not None:
-            raise _not_ported("partial-batch serving (batch=)", 13)
+        the unsharded predict. ``probes=p`` probes the model's center
+        index, empty-probe rows patched by the exact scan
+        (``core.model.predict``). ``batch=`` serves that many rows at a
+        time (``_predict_batched``); it composes with ``mesh=`` and
+        ``probes=`` and gives the unbatched call's labels."""
         if model is None:
             model = self.model_
         if model is None:
             raise ValueError("not fitted: call fit() first or pass model=")
-        data = as_dataset(data)
+        parts = as_dataset(data).parts
+        if batch is not None:
+            return self._predict_batched(model, parts, batch, mesh,
+                                         mesh_axis, probes)
         if mesh is not None:
             return dist_mod.make_predict_sharded(
-                mesh, axis=mesh_axis, probes=probes)(model, *data.parts)
+                mesh, axis=mesh_axis, probes=probes)(model, *parts)
         full_precision_matmul()
-        parts = parts_to_device(data.parts, model.device)
+        parts = parts_to_device(parts, model.device)
         return model_predict(model, model.encode(*parts), probes=probes)
+
+    def _predict_batched(self, model, parts, batch, mesh, mesh_axis, probes):
+        """Serve ``batch`` rows at a time: host slices, the ragged tail
+        padded with sentinel rows (``streaming._pad_rows``) so every step
+        has one shape; rows are independent, so the labels are the
+        unbatched call's. Returns host tensors."""
+        from repro_torch.core.streaming import _host, _pad_rows
+        if batch < 1:
+            raise ValueError(f"batch must be positive, got {batch}")
+        host = tuple(None if p is None else _host(p) for p in parts)
+        n = next(p.shape[0] for p in host if p is not None)
+        labels = torch.empty((n,), dtype=torch.int32)
+        dists = torch.empty((n,), dtype=torch.float32)
+        for off in range(0, n, batch):
+            m = min(batch, n - off)
+            sl = tuple(None if p is None else p[off:off + m] for p in host)
+            if m < batch:
+                sl = tuple(None if p is None else _pad_rows(p, batch)
+                           for p in sl)
+            lab, dst = self.predict(self._wrap_parts(model, sl), model=model,
+                                    mesh=mesh, mesh_axis=mesh_axis,
+                                    probes=probes)
+            labels[off:off + m] = lab[:m].cpu()
+            dists[off:off + m] = dst[:m].cpu()
+        return labels, dists
+
+    @staticmethod
+    def _wrap_parts(model, parts: tuple) -> Dataset:
+        """Rewrap raw part slices in the model's Dataset kind."""
+        kind = getattr(model.transform, "kind", "identity")
+        if kind == "hetero":
+            return HeteroData(*parts)
+        if kind == "sparse":
+            return SparseData(*parts)
+        return DenseData(*parts)

@@ -352,13 +352,11 @@ def make_predict_sharded(mesh: Mesh, *, axis: str = "data",
     and the shared one-pass dispatch, and the outputs are all-gathered:
     global (n,) labels and distances on every rank, bit-identical to
     ``predict(model, model.encode(*parts))`` (rows are independent and
-    the model is the same on every rank). ``probes`` (the center index)
-    is not ported yet.
+    the model is the same on every rank). With ``probes=p`` each rank
+    probes the model's center index for its rows and patches its own
+    empty-probe rows with the exact scan (``model.predict(probes=p)``),
+    so the result is single-device ``predict(..., probes=p)``'s.
     """
-    if probes is not None:
-        raise NotImplementedError("sharded predict with probes= needs the "
-                                  "center index (ROADMAP.md, Queue 1 item 9)")
-
     def predict_fn(model: GeekModel, *parts):
         """Shard the batch, encode and assign each rank's rows, gather."""
         compat.check_device(mesh, model.device, axis)
@@ -369,7 +367,8 @@ def make_predict_sharded(mesh: Mesh, *, axis: str = "data",
             raise ValueError("every query part is None")
         local, n = _pad_and_shard(present, mesh)
         local_parts = _reinsert_none(local, tuple(p is None for p in parts))
-        labels, dists = predict(model, model.encode(*local_parts))
+        labels, dists = predict(model, model.encode(*local_parts),
+                                probes=probes)
         return (_gather_rows(labels, mesh, n), _gather_rows(dists, mesh, n))
 
     return predict_fn

@@ -36,11 +36,12 @@ step); on the CPU the same step runs eagerly.
 
 Differences from the reference. Each fit draws from a ``torch.Generator``
 seeded from ``(seed, layer, kv head, fit number)``; ``draws`` hands a fit
-given arrays instead (the tests hand it the reference's). The center
-index is not ported, so ``probes=`` raises (ROADMAP.md, Queue 1 item 9).
-``use_flash`` is metadata: the device picks the route. Per-cluster sums
-are sorted segment sums, never float atomics, so a run repeats its bits
-on the card.
+given arrays instead (the tests hand it the reference's). ``probes=``
+routes a head whose fit found k* >= ``probe_min_k`` through its model's
+center index, as the reference's ``route`` does; such a step runs
+eagerly. ``use_flash`` is metadata: the device picks the route.
+Per-cluster sums are sorted segment sums, never float atomics, so a run
+repeats its bits on the card.
 """
 from __future__ import annotations
 
@@ -55,7 +56,7 @@ import torch
 from repro_torch.core.api import GEEK, DenseData
 from repro_torch.core.assign import segment_sum_rows
 from repro_torch.core.geek import GeekConfig
-from repro_torch.core.model import GeekModel, update_centers
+from repro_torch.core.model import GeekModel, predict, update_centers
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 from repro_torch.models import model as MODEL
@@ -185,12 +186,22 @@ def absorb_plain(keys, values, centers, v_cent, radius, v_radius, mass,
     each head gets its own result's bits), then ``v_max``. The plain
     version of ``ops.l2_absorb_heads`` (its CPU path) and the card's path
     for n > 1. Returns (labels (H, n) int32, d² (H, n) float32)."""
+    labels, d2 = kops.distance_argmin_l2_heads(keys.to(torch.float32),
+                                               centers, csq, center_valid)
+    _ema_heads(keys, values, labels, centers, v_cent, radius, v_radius, mass,
+               v_max, ema=ema)
+    return labels, d2
+
+
+def _ema_heads(keys, values, labels, centers, v_cent, radius, v_radius, mass,
+               v_max, *, ema: float) -> None:
+    """EMA-drift the clusters that (H, n) ``labels`` hit, in place: one
+    ``_ema`` over the heads' states flattened to (H·K, …), head h's labels
+    offset by h·K, then ``v_max``."""
     H, n, d = keys.shape
     K = centers.shape[1]
     keys = keys.to(torch.float32)
     values = values.to(torch.float32)
-    labels, d2 = kops.distance_argmin_l2_heads(keys, centers, csq,
-                                               center_valid)
     offsets = torch.arange(H, device=keys.device)[:, None] * K
     flat = (labels.to(torch.int64) + offsets).reshape(-1)
     new = _ema(centers.view(H * K, d), radius.view(-1), mass.view(-1),
@@ -202,7 +213,6 @@ def absorb_plain(keys, values, centers, v_cent, radius, v_radius, mass,
     if n:
         torch.maximum(v_max, torch.linalg.norm(values, dim=-1).amax(dim=1),
                       out=v_max)
-    return labels, d2
 
 
 def _value_stats(labels, values, valid):
@@ -227,9 +237,8 @@ def fit_seed(*parts: int) -> int:
 def _check_knobs(ema: float, probes) -> None:
     if not 0.0 < ema <= 1.0:
         raise ValueError(f"ema must be in (0, 1], got {ema}")
-    if probes is not None:
-        raise NotImplementedError("probed routing (probes=) needs the center "
-                                  "index (ROADMAP.md, Queue 1 item 9)")
+    if probes is not None and int(probes) < 0:
+        raise ValueError(f"probes must be >= 0, got {probes}")
 
 
 class LayerKVCluster:
@@ -253,9 +262,13 @@ class LayerKVCluster:
     gcfg : GeekConfig or None
         ``default_kv_config()`` when None.
     ema : float in (0, 1]
-    probes
-        Probed routing needs the center index: ``probes`` other than None
-        raises ``NotImplementedError``.
+    probes, probe_min_k : int or None, int
+        A head whose last fit found k* >= ``probe_min_k`` routes through
+        its model's center index (``predict(probes=)``, the index as of
+        that fit) when ``probes`` is not None; every other head routes
+        exact. A layer with a probed head absorbs through the routes and
+        one EMA (``_ema_heads``); otherwise a step's row takes the absorb
+        kernel.
     seeds : sequence of int tuples, one per head, or None
         Head h's fit number f draws from a generator seeded with
         ``fit_seed(*seeds[h], f)``; None gives head h the tuple ``(h,)``.
@@ -269,11 +282,13 @@ class LayerKVCluster:
 
     def __init__(self, num_heads: int, head_dim: int,
                  gcfg: GeekConfig | None = None, *, ema: float = 0.1,
-                 probes: int | None = None, seeds=None, draws=None,
-                 device=None):
+                 probes: int | None = None, probe_min_k: int = 256,
+                 seeds=None, draws=None, device=None):
         self.gcfg = default_kv_config() if gcfg is None else gcfg
         _check_knobs(ema, probes)
         self.ema = float(ema)
+        self.probes = probes
+        self.probe_min_k = int(probe_min_k)
         H, K = int(num_heads), self.gcfg.k_max
         self.seeds = [(h,) for h in range(H)] if seeds is None else [
             tuple(s) for s in seeds]
@@ -337,15 +352,29 @@ class LayerKVCluster:
             self._fit_row(h, keys[:, h], values[:, h])
         self.pending = 0
 
+    def probed_heads(self) -> list[int]:
+        """The heads that route through their center index: ``probes``
+        set and the head's last fit found k* >= ``probe_min_k``."""
+        if self.probes is None:
+            return []
+        return [h for h in range(self.num_heads)
+                if self._models[h] is not None
+                and self._models[h].center_index is not None
+                and self.k_stars[h] >= self.probe_min_k]
+
     def route(self, keys: torch.Tensor) -> torch.Tensor:
         """Assign (H, n, hd) keys, every head against its own centroids, in
         one launch (``ops.distance_argmin_l2_heads``; ‖c‖² computed once
-        here); returns (H, n) int32 labels, each head's those of the
-        model's exact ``predict``."""
+        here): each head's labels those of the model's exact ``predict``.
+        A probed head's (``probed_heads``) are then those of its model's
+        ``predict(probes=)``. Returns (H, n) int32 labels."""
+        keys = keys.to(torch.float32)
         csq = torch.sum(self.centers * self.centers, dim=-1)
-        labels, _ = kops.distance_argmin_l2_heads(keys.to(torch.float32),
-                                                  self.centers, csq,
+        labels, _ = kops.distance_argmin_l2_heads(keys, self.centers, csq,
                                                   self.center_valid)
+        for h in self.probed_heads():
+            labels[h] = predict(self.head_model(h), keys[h],
+                                probes=self.probes)[0]
         return labels
 
     def absorb(self, keys: torch.Tensor, values: torch.Tensor
@@ -356,7 +385,15 @@ class LayerKVCluster:
         kernel; on the CPU ``absorb_plain``), more rows through
         ``absorb_plain``. ‖c‖² is computed here for the route. Device work
         only: nothing is read on the host, so a CUDA graph can hold it
-        (``update`` also counts the rows). Returns (H, n) int32 labels."""
+        (``update`` also counts the rows). A layer with a probed head
+        routes (``route``) and then drifts all heads in one EMA; that
+        reads the device on the host. Returns (H, n) int32 labels."""
+        if self.probed_heads():
+            labels = self.route(keys)
+            _ema_heads(keys, values, labels, self.centers, self.v_cent,
+                       self.radius, self.v_radius, self.mass, self.v_max,
+                       ema=self.ema)
+            return labels
         state = (self.centers, self.v_cent, self.radius, self.v_radius,
                  self.mass, self.center_valid, self.v_max)
         csq = torch.sum(self.centers * self.centers, dim=-1)
@@ -426,9 +463,9 @@ class OnlineKVCluster:
     gcfg : GeekConfig or None
         ``default_kv_config()`` when None.
     ema : float in (0, 1]
-    probes
-        Probed routing needs the center index: ``probes`` other than None
-        raises ``NotImplementedError``.
+    probes, probe_min_k : int or None, int
+        As in ``LayerKVCluster``: with ``probes`` set, the head routes
+        through its center index once a fit finds k* >= ``probe_min_k``.
     seed : int or tuple of ints
         Fit number f draws from a generator seeded with
         ``fit_seed(*seed, f)``.
@@ -441,10 +478,13 @@ class OnlineKVCluster:
     """
 
     def __init__(self, gcfg: GeekConfig | None = None, *, ema: float = 0.1,
-                 probes: int | None = None, seed=0, draws=None, device=None):
+                 probes: int | None = None, probe_min_k: int = 256, seed=0,
+                 draws=None, device=None):
         self.gcfg = default_kv_config() if gcfg is None else gcfg
         _check_knobs(ema, probes)
         self.ema = float(ema)
+        self.probes = probes
+        self.probe_min_k = int(probe_min_k)
         self.seed = tuple(seed) if isinstance(seed, (tuple, list)) else (seed,)
         self.draws = draws
         self.device = resolve_device(device)
@@ -496,13 +536,15 @@ class OnlineKVCluster:
             draws = None if self.draws is None else (
                 lambda h, fit: self.draws(fit))
             self.layer = LayerKVCluster(
-                1, keys.shape[-1], self.gcfg, ema=self.ema, seeds=[self.seed],
-                draws=draws, device=self.device)
+                1, keys.shape[-1], self.gcfg, ema=self.ema,
+                probes=self.probes, probe_min_k=self.probe_min_k,
+                seeds=[self.seed], draws=draws, device=self.device)
         self.layer.start(keys[:, None], values[:, None])
 
     def route(self, keys) -> torch.Tensor:
-        """Assign (n, hd) keys to centroids with the model's exact
-        ``predict``; returns (n,) int32 labels."""
+        """Assign (n, hd) keys to centroids with the model's ``predict``:
+        probed once k* >= ``probe_min_k`` (with ``probes`` set), else
+        exact; returns (n,) int32 labels."""
         return self.layer.route(self._rows(keys)[None])[0]
 
     def update(self, keys, values) -> torch.Tensor:
@@ -647,9 +689,9 @@ def _sync(device: torch.device) -> float:
 def clustered_decode(params, cfg, tokens, prompt_len: int, *,
                      mode: str = "clustered", gcfg: GeekConfig | None = None,
                      ema: float = 0.1, refresh_every: int = 32,
-                     probes: int | None = None, use_flash: bool = False,
-                     seed: int = 0, draws=None, device=None,
-                     cuda_graph: bool = True) -> dict:
+                     probes: int | None = None, probe_min_k: int = 256,
+                     use_flash: bool = False, seed: int = 0, draws=None,
+                     device=None, cuda_graph: bool = True) -> dict:
     """Teacher-forced decode with (or without) online KV clustering.
 
     Prefills ``tokens[:, :prompt_len]`` with exact attention (the flash
@@ -672,8 +714,11 @@ def clustered_decode(params, cfg, tokens, prompt_len: int, *,
         are scored.
     prompt_len : int, 0 < prompt_len < total.
     mode : {"clustered", "exact"}
-    gcfg, ema, refresh_every, probes, use_flash
-        Clustering knobs (``LayerKVCluster``); ignored for "exact".
+    gcfg, ema, refresh_every, probes, probe_min_k, use_flash
+        Clustering knobs (``LayerKVCluster``); ignored for "exact". A
+        probed route reads the device on the host, so the step runs
+        eagerly whenever a head can reach ``probe_min_k`` (``probes`` set
+        and ``gcfg.k_max >= probe_min_k``).
     seed : int
         Head h of layer l fits from ``fit_seed(seed, l, h, fit number)``.
     draws : callable or None
@@ -695,7 +740,8 @@ def clustered_decode(params, cfg, tokens, prompt_len: int, *,
         ``refresh``), and for clustered mode ``mean_k_star``,
         ``compression`` (final cache length / mean k*), ``refreshes``,
         ``k_stars`` and ``overflows`` (per head, layer by layer, after the
-        last fit).
+        last fit) and ``cuda_graph`` (whether the step was replayed as a
+        CUDA graph).
     """
     dev = resolve_device(device)
     pdev = params["head"]["w"].device
@@ -711,6 +757,9 @@ def clustered_decode(params, cfg, tokens, prompt_len: int, *,
     if not 0 < prompt_len < total:
         raise ValueError(f"need 0 < prompt_len < {total}, got {prompt_len}")
     full_precision_matmul()
+    k_max = (default_kv_config() if gcfg is None else gcfg).k_max
+    graph = (dev.type == "cuda" and cuda_graph
+             and (probes is None or k_max < probe_min_k))
     attn_layers = [i for i, (mix, _) in enumerate(T.layer_plan(cfg))
                    if mix == "attn"]
     seconds = {"prefill": 0.0, "fits": 0.0, "steps": [], "refresh": 0.0}
@@ -728,7 +777,7 @@ def clustered_decode(params, cfg, tokens, prompt_len: int, *,
         for lyr in attn_layers:
             layers[lyr] = LayerKVCluster(
                 cfg.num_kv_heads, cfg.resolved_head_dim, gcfg, ema=ema,
-                probes=probes, device=dev,
+                probes=probes, probe_min_k=probe_min_k, device=dev,
                 seeds=[(seed, lyr, h) for h in range(cfg.num_kv_heads)],
                 draws=None if draws is None else functools.partial(draws,
                                                                    lyr))
@@ -756,7 +805,7 @@ def clustered_decode(params, cfg, tokens, prompt_len: int, *,
                 token.copy_(tokens[:, t:t + 1])
                 if replay is not None:
                     logits = replay()
-                elif dev.type == "cuda" and cuda_graph:
+                elif graph:
                     replay = _Replay(lambda: step(params, caches, position,
                                                   token))
                     logits = replay.first
@@ -783,4 +832,5 @@ def clustered_decode(params, cfg, tokens, prompt_len: int, *,
         out["mean_k_star"] = sum(out["k_stars"]) / len(out["k_stars"])
         out["compression"] = total / max(out["mean_k_star"], 1.0)
         out["refreshes"] = sum(sum(lay.refreshes) for lay in lays)
+        out["cuda_graph"] = graph
     return out

@@ -62,6 +62,29 @@ def _threefry2x32(k0: int, k1: int, x0: torch.Tensor, x1: torch.Tensor
     return x0, x1
 
 
+def _raw_key(key) -> tuple[int, int]:
+    """The two uint32 words of a raw (2,) JAX key (tensor, numpy, list)."""
+    kt = (key if isinstance(key, torch.Tensor)
+          else torch.from_numpy(np.asarray(key).astype(np.int64))).reshape(-1)
+    if kt.numel() != 2:
+        raise ValueError(f"expected a raw (2,) uint32 key, got {kt.numel()} "
+                         "words")
+    k0, k1 = (int(v) & M32 for v in kt.tolist())
+    return k0, k1
+
+
+def split(key, num: int = 2) -> torch.Tensor:
+    """(num, 2) raw keys in the int64 carrier: the exact bits of
+    ``jax.random.split(key, num)`` under the partitionable Threefry-2x32
+    of jax 0.9, where key i is the hashed pair of the counter (0, i)
+    (both words, not their xor). ``key`` as in
+    ``derive_hash_keys_from_key``; the result is on the CPU."""
+    k0, k1 = _raw_key(key)
+    idx = torch.arange(num, dtype=torch.int64)
+    x0, x1 = _threefry2x32(k0, k1, idx >> 32, idx & M32)
+    return torch.stack([x0, x1], dim=-1)
+
+
 def derive_hash_keys_from_key(key, shape: tuple[int, ...]) -> torch.Tensor:
     """(..., 2) uint32 (a | 1, b) keys derived from a raw JAX key: the
     exact bits of ``repro.utils.hashing.derive_hash_keys(key, shape)``.
@@ -75,14 +98,10 @@ def derive_hash_keys_from_key(key, shape: tuple[int, ...]) -> torch.Tensor:
     the hashed pair. The result is in the int64 carrier, on ``key``'s
     device (the CPU for a non-tensor key).
     """
-    kt = (key if isinstance(key, torch.Tensor)
-          else torch.from_numpy(np.asarray(key).astype(np.int64))).reshape(-1)
-    if kt.numel() != 2:
-        raise ValueError(f"expected a raw (2,) uint32 key, got {kt.numel()} "
-                         "words")
-    k0, k1 = (int(v) & M32 for v in kt.tolist())
+    k0, k1 = _raw_key(key)
     count = 2 * math.prod(shape)
-    idx = torch.arange(count, dtype=torch.int64, device=kt.device)
+    dev = key.device if isinstance(key, torch.Tensor) else None
+    idx = torch.arange(count, dtype=torch.int64, device=dev)
     x0, x1 = _threefry2x32(k0, k1, idx >> 32, idx & M32)
     bits = (x0 ^ x1).reshape(tuple(shape) + (2,))
     bits[..., 0] |= 1

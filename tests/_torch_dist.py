@@ -99,6 +99,7 @@ SHARD_CFG = dict(m=16, t=32, silk_l=4, delta=5, k_max=64, pair_cap=8192)
 SYNC_CFG = dict(m=16, t=32, silk_l=4, delta=5, k_max=256, pair_cap=8192)
 SYNC_RUNS = ((0, False), (2, False), (2, True))   # (refine_sweeps, compress)
 N_FIT, N_NEW = 1537, 301                          # ragged at g = 2 and 4
+STREAM_CHUNK = 256        # chunk= with mesh=: a multiple of g, ragged tail
 KINDS = ("dense", "hetero", "sparse")
 
 
@@ -211,6 +212,10 @@ def mesh_outputs(mesh, ckpt_dir: str, sync: dict | None):
         fresh = blobs(kind, N_NEW, 99)
         lab, dst = rt.make_predict_sharded(mesh)(model, *fresh)
         res["predict_fresh"] = (lab.numpy(), dst.numpy())
+        lab, dst = rt.make_predict_sharded(mesh, probes=1)(model, *fresh)
+        res["predict_probed"] = (lab.numpy(), dst.numpy())
+        _, _, out[("streamed", kind)] = fit_outputs(SHARD_CFG, parts, kind,
+                                                    mesh, chunk=STREAM_CHUNK)
         lab2, _ = est.predict(as_data(kind, fresh), mesh=mesh)
         res["predict_facade"] = lab2.numpy()
         # checkpoint of the sharded fit, restored on every rank, served

@@ -46,6 +46,7 @@ TORCH_ALL = [
 
 #: the locked core surface — keep sorted
 TORCH_CORE_ALL = [
+    "CenterIndex",
     "DenseData",
     "GEEK",
     "GeekConfig",
@@ -63,19 +64,18 @@ TORCH_CORE_ALL = [
     "SparseData",
     "SparseTransform",
     "as_dataset",
+    "build_center_index",
     "build_model",
     "discover",
+    "patch_probed_fallback",
     "predict",
+    "predict_probed",
     "silk_seeding",
     "update_centers",
 ]
 
 #: ``repro.core`` names not ported yet, by ROADMAP.md Queue 1 item
-CORE_NOT_PORTED = {
-    "CenterIndex": 9, "build_center_index": 9, "predict_probed": 9,
-    "patch_probed_fallback": 9, "KMeansPPSeeder": 10,
-    "ScalableKMeansPPSeeder": 10,
-}
+CORE_NOT_PORTED = {"KMeansPPSeeder": 10, "ScalableKMeansPPSeeder": 10}
 
 #: the locked serving surface — keep sorted
 TORCH_SERVE_ALL = [

@@ -16,6 +16,7 @@ import repro_torch as rt
 from _torch_parity import (DEAD_TILE_LAYOUTS,  # noqa: F401
                            InjectedBucketer, assert_labels_match, carrier,
                            cuda_device, dead_tile_layout, u32)
+from repro_torch.core import model as tm
 from repro_torch.kernels import distance_argmin as tda
 from repro_torch.kernels import distance_argmin_hamming as tdh
 from repro_torch.kernels import minhash_buckets as tmh
@@ -859,3 +860,84 @@ def test_absorb_graph_replay_equals_eager(cuda_device):
     assert torch.equal(got, want)
     for n in ABSORB_STATE:
         assert torch.equal(getattr(graphed, n), getattr(eager, n)), n
+
+
+def _code_model(device, impl, k=64, d=16, seed=0):
+    """A Hamming model with a narrow index (bucket 4) and queries, on
+    ``device``: half the queries copies of centers."""
+    rng = np.random.default_rng(seed)
+    c = rng.integers(0, 16, (k, d)).astype(np.int32)
+    x = rng.integers(0, 16, (2000, d)).astype(np.int32)
+    x[::2] = c[rng.integers(0, k, 1000)]
+    valid = np.arange(k) % 9 != 4
+    model = tm.build_model(
+        torch.from_numpy(c).to(device), torch.from_numpy(valid).to(device),
+        torch.tensor(int(valid.sum())).to(device), torch.zeros(k).to(device),
+        metric="hamming", impl=impl, code_bits=4, index_tables=4,
+        index_bucket=4)
+    return model, torch.from_numpy(x).to(device)
+
+
+@pytest.mark.parametrize("impl", ["equality", "packed", "onehot"])
+def test_probed_hamming_predict_on_card_equals_plain(cuda_device, impl):
+    """The index and the probed predict on the card are the CPU's bits;
+    the empty-probe fallback launches the card's kernel."""
+    gpu, xg = _code_model(cuda_device, impl)
+    cpu, xc = _code_model("cpu", impl)
+    for a, b in ((gpu.center_index.sorted_keys, cpu.center_index.sorted_keys),
+                 (gpu.center_index.sorted_ids, cpu.center_index.sorted_ids)):
+        assert torch.equal(a.cpu(), b)
+    for p in (0, 1):
+        for g, c in zip(rt.predict(gpu, xg, probes=p),
+                        rt.predict(cpu, xc, probes=p)):
+            assert torch.equal(g.cpu(), c)
+
+
+def test_probed_l2_predict_on_card_holds_the_property(cuda_device):
+    rng = np.random.default_rng(1)
+    c = rng.standard_normal((300, 32)).astype(np.float32)
+    x = (c[rng.integers(0, 300, 3000)]
+         + 0.3 * rng.standard_normal((3000, 32))).astype(np.float32)
+    model = tm.build_model(
+        torch.from_numpy(c).to(cuda_device),
+        torch.ones(300, dtype=torch.bool, device=cuda_device),
+        torch.tensor(300).to(cuda_device), torch.zeros(300).to(cuda_device),
+        metric="l2", index_tables=8, index_bucket=8)
+    xg = torch.from_numpy(x).to(cuda_device)
+    exact, _ = rt.predict(model, xg)
+    lab, dst = rt.predict(model, xg, probes=1)
+    cand, mask = tm.probe_candidates(model.center_index, xg, 1)
+    hit = ((cand == exact[:, None].long()) & mask).any(1).cpu().numpy()
+    assert_labels_match(x[hit], c, np.ones(300, bool),
+                        exact.cpu().numpy()[hit], lab.cpu().numpy()[hit],
+                        "probed l2 on the card")
+    assert bool(torch.isfinite(dst).all())
+
+
+@pytest.mark.parametrize("kind", ["dense", "sparse"])
+def test_streamed_fit_on_card_equals_incore(cuda_device, kind):
+    """fit(chunk=) on the card (pinned chunks on a copy stream) equals the
+    in-core fit on the card, bit for bit, and the pass runs the kernels."""
+    rng = np.random.default_rng(2)
+    if kind == "dense":
+        c = 3.0 * rng.standard_normal((8, 24))
+        parts = ((c[rng.integers(0, 8, 5000)]
+                  + 0.2 * rng.standard_normal((5000, 24))).astype(np.float32),)
+        data = rt.DenseData
+    else:
+        sets = rng.integers(0, 10**5, (8, 20))[rng.integers(0, 8, 5000)]
+        parts = (sets.astype(np.int32), np.ones((5000, 20), bool))
+        data = rt.SparseData
+    cfg = rt.GeekConfig(m=16, t=32, k_max=64, pair_cap=1 << 14)
+    est = rt.GEEK(cfg)
+    model = est.fit(data(*parts), 0)
+    want = est.result_
+    smodel = est.fit(data(*parts), 0, chunk=1100)
+    got = est.result_
+    assert est.stream_peak_bytes_ is not None
+    for f in ("labels", "dists"):
+        assert torch.equal(getattr(got, f), getattr(want, f).cpu())
+    assert torch.equal(smodel.radius, model.radius)
+    assert torch.equal(smodel.centers, model.centers)
+    lab, _ = est.predict(data(*parts), batch=777, probes=1)
+    assert torch.equal(lab, est.predict(data(*parts), probes=1)[0].cpu())

@@ -12,8 +12,11 @@ and the subprocess have their own timeout.
   sharded and gathered discovery; the narrow-int bucket-map wire) equal
   the port's in-core fit bit for bit: labels, dists, centers, seeds, k*,
   overflow, radius, as ``repro`` holds its own sharded fit.
-- ``make_predict_sharded`` equals ``predict``; a checkpoint of a sharded
-  fit restores on every rank and serves the fit labels.
+- ``make_predict_sharded`` equals ``predict``, with ``probes=1`` too; a
+  checkpoint of a sharded fit restores on every rank and serves the fit
+  labels.
+- The streaming fit with ``mesh=`` (``chunk=256``, a ragged tail) equals
+  the in-core fit bit for bit on every rank.
 - ``narrow_int_all_to_all`` equals the reference's on the same per-rank
   inputs, bit for bit. ``compressed_psum`` quantizes exactly as the
   reference does; the reference's compiler contracts the dequantizing
@@ -122,6 +125,9 @@ def outputs(tmp_path_factory):
             fresh = rt.predict(model, model.encode(*(
                 torch.as_tensor(p) for p in blobs(kind, N_NEW, 99))))
             res["predict_fresh"] = tuple(t.numpy() for t in fresh)
+            res["predict_probed"] = tuple(t.numpy() for t in rt.predict(
+                model, model.encode(*(torch.as_tensor(p) for p in blobs(
+                    kind, N_NEW, 99))), probes=1))
             incore[kind] = res
         ranks = {}
         with single_rank_group(tmp):
@@ -196,6 +202,28 @@ def test_predict_sharded_equals_predict(outputs, kind, g):
         np.testing.assert_array_equal(got_l, want_l)
         np.testing.assert_array_equal(got_d, want_d)
         np.testing.assert_array_equal(res["predict_facade"], want_l)
+
+
+@pytest.mark.parametrize("g", [1, 2, 4])
+@pytest.mark.parametrize("kind", KINDS)
+def test_predict_sharded_probed_equals_predict(outputs, kind, g):
+    """make_predict_sharded(probes=1): each rank probes and patches its own
+    rows; the gathered result is single-device predict(probes=1)'s."""
+    want_l, want_d = outputs["incore"][kind]["predict_probed"]
+    for out in outputs["ranks"][g]:
+        got_l, got_d = out[("sharded", kind)]["predict_probed"]
+        np.testing.assert_array_equal(got_l, want_l)
+        np.testing.assert_array_equal(got_d, want_d)
+
+
+@pytest.mark.parametrize("g", [1, 2, 4])
+@pytest.mark.parametrize("kind", KINDS)
+def test_streamed_sharded_fit_bit_identical_to_incore(outputs, kind, g):
+    """fit(chunk=, mesh=): each 256-row chunk (the last one ragged) split
+    over the ranks equals the in-core fit bit for bit on every rank."""
+    for rank, out in enumerate(outputs["ranks"][g]):
+        _assert_same_fit(out[("streamed", kind)], outputs["incore"][kind],
+                         f"streamed {kind} g={g} rank {rank}")
 
 
 @pytest.mark.parametrize("g", [1, 2, 4])
@@ -322,9 +350,12 @@ def test_discovery_knob_and_mesh_checks(tmp_path):
                     seed_cap=50)
         with pytest.raises(ValueError, match="mesh axis"):
             est.fit(rt.DenseData(x), 0, mesh=mesh, mesh_axis="model")
-        with pytest.raises(NotImplementedError, match="item 9"):
+        with pytest.raises(ValueError, match="probes must be"):
             est.predict(rt.DenseData(x), model=est.fit(rt.DenseData(x), 0),
-                        mesh=mesh, probes=1)
+                        mesh=mesh, probes=-1)
+        with pytest.raises(ValueError, match="only applies to hetero"):
+            est.fit(rt.DenseData(x), 0, mesh=mesh, chunk=64,
+                    boundaries="exact")
 
         class NcclMesh(compat.Mesh):
             backend = "nccl"

@@ -15,8 +15,10 @@ import torch
 
 import repro
 import repro_torch as rt
+from _torch_dist import single_rank_group
 from _torch_parity import (InjectedBucketer, assert_labels_match, carrier,
                            jax_draws)
+from repro_torch.core import model as tmodel_mod
 from repro.checkpoint import manager as jmgr
 from repro.core import api as japi
 from repro.core import lsh as jlsh
@@ -230,17 +232,37 @@ def test_entry_points_refuse_to_run_without_a_card(monkeypatch, tmp_path):
                                device="cpu")["steps"] == 4
 
 
-def test_modes_not_ported_yet_raise(fits):
-    """What is still unported raises and names its ROADMAP item:
-    ``chunk=`` (with or without ``mesh=``), ``batch=``, ``probes=`` and
-    ``mesh=`` with ``probes=``."""
-    est, x = fits["test"], fits["x"]
-    for kw in (dict(chunk=128), dict(chunk=128, mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            est.fit(rt.DenseData(x), 0, **kw)
-    for kw in (dict(batch=64), dict(probes=1), dict(mesh=object(), probes=1)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            est.predict(rt.DenseData(x), **kw)
+def test_streaming_batch_and_probed_modes_give_their_results(fits, tmp_path):
+    """The modes that raised until they were ported now give their
+    results: ``chunk=`` (with and without ``mesh=``) the in-core fit's,
+    ``batch=`` the unbatched labels, ``probes=`` (with and without
+    ``mesh=``) the probed labels of ``predict(probes=)``, which equal the
+    exact ones wherever the exact argmin is among a row's candidates."""
+    est, x, want = fits["test"], fits["x"], fits["test"].result_
+    with single_rank_group(tmp_path):
+        mesh = rt.make_mesh()
+        for kw in (dict(chunk=128), dict(chunk=128, mesh=mesh)):
+            streamed = rt.GEEK(est.cfg, bucketer=fits["tb"], device="cpu")
+            model = streamed.fit(rt.DenseData(x), 0, **kw)
+            got = streamed.result_
+            for f in ("labels", "dists", "radius", "centers", "k_star"):
+                assert torch.equal(getattr(got, f), getattr(want, f)), (kw, f)
+            assert torch.equal(model.radius, fits["tmodel"].radius)
+        exact, _ = est.predict(rt.DenseData(x))
+        batched, _ = est.predict(rt.DenseData(x), batch=300)
+        assert torch.equal(batched, exact)
+        model = fits["tmodel"]
+        probed, pd = rt.predict(model, x, probes=1)
+        for kw in (dict(probes=1), dict(mesh=mesh, probes=1),
+                   dict(batch=300, probes=1)):
+            lab, dst = est.predict(rt.DenseData(x), **kw)
+            assert torch.equal(lab, probed) and torch.equal(dst, pd), kw
+    cand, mask = tmodel_mod.probe_candidates(model.center_index,
+                                        torch.from_numpy(x), 1)
+    mask &= model.center_valid[cand]
+    hit = ((cand == exact[:, None].long()) & mask).any(1)
+    assert hit.float().mean() > 0.5
+    assert torch.equal(probed[hit], exact[hit])
 
 
 def test_port_facade_draws_from_seed_deterministically():

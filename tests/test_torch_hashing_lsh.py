@@ -84,6 +84,18 @@ def test_derive_hash_keys_from_key_matches_reference(seed, typed):
                 np.asarray(jh.derive_hash_keys(k, shape)))
 
 
+@pytest.mark.parametrize("seed", [0, 7, 0x6EEC, 2**40 + 3])
+@pytest.mark.parametrize("num", [1, 2, 3, 5])
+def test_split_matches_reference(seed, num):
+    """``split`` reproduces ``jax.random.split`` bit for bit, the keys the
+    center index derives its Hamming hashes from."""
+    import jax
+    key = jax.random.PRNGKey(seed)
+    np.testing.assert_array_equal(
+        u32(th.split(carrier(np.asarray(key)), num)),
+        np.asarray(jax.random.split(key, num)))
+
+
 def test_qalsh_hash_matches_reference():
     rng = np.random.default_rng(0)
     x = rng.standard_normal((300, 24)).astype(np.float32)

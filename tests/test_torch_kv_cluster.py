@@ -36,7 +36,8 @@ from _torch_parity import InjectedBucketer, assert_labels_match, carrier, \
 from repro.configs import get_arch as j_get_arch
 from repro.models import model as JM
 from repro.serve import kv_cluster as jkv
-from repro_torch.core.model import build_model, predict, update_centers
+from repro_torch.core.model import (build_center_index, build_model,
+                                    predict, update_centers)
 from repro_torch.kernels.pack import pack_codes
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.serve import kv_cluster as tkv
@@ -301,9 +302,16 @@ def test_update_centers_rederives_and_refuses_the_index():
     np.testing.assert_array_equal(lab.numpy(), d.argmin(axis=1))
     with pytest.raises(ValueError, match="centers"):
         update_centers(model, model.centers[:, :-1])
+    # the index stays as fitted unless asked, then is rebuilt from the
+    # new centers (the center index was refused here before it was ported)
     assert model.index_tables > 0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        update_centers(model, model.centers, rebuild_index=True)
+    assert moved.center_index is model.center_index
+    rebuilt = update_centers(model, model.centers + 0.5, rebuild_index=True)
+    fresh = build_center_index(model.centers + 0.5, model.center_valid,
+                               metric="l2", tables=model.index_tables,
+                               bucket=model.index_bucket)
+    assert torch.equal(rebuilt.center_index.sorted_ids, fresh.sorted_ids)
+    assert torch.equal(rebuilt.center_index.sorted_keys, fresh.sorted_keys)
     no_index = dataclasses.replace(model, index_tables=0)
     assert update_centers(no_index, model.centers, rebuild_index=True) \
         .index_tables == 0
@@ -316,13 +324,61 @@ def test_update_centers_rederives_and_refuses_the_index():
                        pack_codes(new, 4))
 
 
+def test_route_probed_threshold():
+    """probes engage only once a fit finds k* >= probe_min_k; then the
+    route is the model's probed predict, else the exact one."""
+    keys, values = _blobs(n=256, hd=8, k=8, seed=6)
+    gcfg = tkv.default_kv_config(16)
+    lo = tkv.OnlineKVCluster(gcfg, probes=1, probe_min_k=10 ** 6,
+                             device="cpu")
+    lo.start(_t(keys), _t(values))
+    want, _ = predict(lo.model, _t(keys[:40]))
+    assert lo.layer.probed_heads() == []
+    assert torch.equal(lo.route(keys[:40]), want)
+    hi = tkv.OnlineKVCluster(gcfg, probes=0, probe_min_k=1, device="cpu")
+    hi.start(_t(keys), _t(values))
+    assert hi.layer.probed_heads() == [0]
+    want, _ = predict(hi.model, _t(keys[:40]), probes=0)
+    assert torch.equal(hi.route(keys[:40]), want)
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+def test_layer_probed_absorb_routes_then_drifts(mixed):
+    """A layer whose heads route through their indexes (all, or all but
+    head 1, whose k* is set below probe_min_k) absorbs as routing then
+    one EMA: with each window as wide as k_max the probed labels are the
+    exact ones, so the state is the exact-routed layer's, bit for bit."""
+    rng = np.random.default_rng(int(mixed))
+    H, hd, n = 3, 8, 96
+    keys = np.stack([_blobs(n=n, hd=hd, k=2 + 2 * h, seed=h)[0]
+                     for h in range(H)], axis=1)               # (n, H, hd)
+    gcfg = tkv.default_kv_config(8)
+    lays = [tkv.LayerKVCluster(H, hd, gcfg, probes=p, probe_min_k=2,
+                               device="cpu") for p in (None, 1)]
+    for lay in lays:
+        lay.start(_t(keys), _t(keys))
+    if mixed:
+        lays[1].k_stars[1] = 1
+    assert lays[1].probed_heads() == ([0, 2] if mixed else [0, 1, 2])
+    new = _t(keys[:5].transpose(1, 0, 2)
+             + 0.01 * rng.standard_normal((H, 5, hd)).astype(np.float32))
+    for rows in (new, new[:, :1]):
+        got = [lay.update(rows, rows) for lay in lays]
+        assert torch.equal(got[0], got[1])
+        for name in ("centers", "radius", "mass", "v_cent", "v_radius",
+                     "v_max"):
+            assert torch.equal(getattr(lays[0], name),
+                               getattr(lays[1], name)), name
+
+
 def test_constructor_validation():
     with pytest.raises(ValueError, match="ema"):
         tkv.OnlineKVCluster(ema=0.0, device="cpu")
     with pytest.raises(ValueError, match="ema"):
         tkv.OnlineKVCluster(ema=1.5, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tkv.OnlineKVCluster(probes=2, device="cpu")
+    with pytest.raises(ValueError, match="probes"):
+        tkv.OnlineKVCluster(probes=-1, device="cpu")
+    assert tkv.OnlineKVCluster(probes=2, device="cpu").probe_min_k == 256
     assert tkv.OnlineKVCluster(device="cpu").k_star == 0
     assert tkv.fit_seed(1, 2, 3) == tkv.fit_seed(1, 2, 3) != \
         tkv.fit_seed(1, 2, 4)
@@ -399,5 +455,10 @@ def test_clustered_decode_own_draws_and_validation():
     for bad in (0, tokens.shape[1]):
         with pytest.raises(ValueError, match="prompt_len"):
             tkv.clustered_decode(tp, cfg, tokens, bad, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tkv.clustered_decode(tp, cfg, tokens, 48, probes=2, device="cpu")
+    with pytest.raises(ValueError, match="probes"):
+        tkv.clustered_decode(tp, cfg, tokens, 48, probes=-1, device="cpu")
+    # k_max 8 < probe_min_k: no head can route probed, the run is the same
+    probed = tkv.clustered_decode(tp, cfg, tokens, 48, probes=2, device="cpu",
+                                  gcfg=tkv.default_kv_config(8),
+                                  refresh_every=6)
+    assert probed["ppl"] == out["ppl"] and not probed["cuda_graph"]

@@ -149,8 +149,10 @@ def test_layer_refresh_with_nothing_pending_is_a_noop():
     assert layer.centers.data_ptr() == storage      # written in place
     with pytest.raises(ValueError, match="ema"):
         tkv.LayerKVCluster(2, HD, ema=0.0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tkv.LayerKVCluster(2, HD, probes=2, device="cpu")
+    with pytest.raises(ValueError, match="probes"):
+        tkv.LayerKVCluster(2, HD, probes=-1, device="cpu")
+    assert tkv.LayerKVCluster(2, HD, probes=2, device="cpu").probed_heads() \
+        == []                                       # no fit yet
     with pytest.raises(ValueError, match="seeds"):
         tkv.LayerKVCluster(2, HD, seeds=[(0,)], device="cpu")
 
