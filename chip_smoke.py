@@ -50,6 +50,18 @@ with ``probes=1`` equal to the clustered run; and the streaming fit
 pieces, ``seed_cap=``, ``mesh=``) against the in-core fits bit for bit,
 with the pass's device memory, and ``GEEK.predict(batch=)``.
 
+Then the serving tier (phase 14) on the fitted models at the reference's
+defaults (``max_batch`` 4,096, 5 ms deadline): fresh raw rows in requests
+of log-uniform sizes through ``ClusterServer`` (dense exact with a
+``swap()`` halfway, to phase 13's seed-capped streamed model, and probed;
+hetero; sparse), a two-worker ``WorkerPool`` on the one card, a
+``ClusterFrontend`` on loopback and a ``RefitAutopilot`` refit beside a
+live stream, every request's labels equal to ``predict`` of the version
+it reports; and the §4.1 baselines (phase 15) at k = 1,024 on phase 4's
+rows and phase 7's codes (``seed_then_assign`` by k-means++, k-means‖ and
+random, Lloyd, sampled k-means, k-modes), each through the kernels and
+through the plain path on the card from the same generator state.
+
 All data is generated from a seed, not downloaded. It checks that each
 path launched its kernels, round-trips checkpoints, and reproduces the
 labels of models fitted and saved by the JAX reference
@@ -60,6 +72,7 @@ last line is ``{"ok": true, "device": {...}}``.
 
 Imports only torch, numpy, the standard library and ``repro_torch``.
 """
+import contextlib
 import json
 import math
 import os
@@ -68,6 +81,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -228,8 +242,12 @@ def absorb_rtol(d):
     return (d + 2) * 2.0**-24
 
 
+#: traces ``device_ms`` takes before it gives up on finding a kernel
+DEVICE_TRACES = 3
+
+
 def phase(name):
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - T0:.1f} s)", flush=True)
 
 
 def cuda_ms(fn, iters):
@@ -257,29 +275,37 @@ def device_ms(fn, iters, match=""):
     second step of the profiler's schedule, after a warm-up step of
     ``iters`` calls whose trace is dropped; and each kernel's time is its
     mean over the events the trace holds of it, times its launches a
-    call (its events over ``iters``, rounded, at least 1)."""
+    call (its events over ``iters``, rounded, at least 1). Even so a
+    trace of a short loop can come back without the kernel (it has, at
+    phase 11's fit inputs): it is taken again, up to ``DEVICE_TRACES``
+    times in all, before this raises."""
     from torch.profiler import ProfilerActivity, profile, schedule
     names = match if isinstance(match, tuple) else (match,)
-    traced = []
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1),
-                 on_trace_ready=lambda p: traced.extend(p.key_averages())
-                 ) as prof:
-        for _ in range(2):
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
-    total = 0.0
-    for e in traced:
-        if any(m in e.key for m in names) and e.self_device_time_total > 0:
-            per_call = max(1, round(e.count / iters))
-            total += e.self_device_time_total / e.count * per_call
-    if total == 0.0:
-        raise AssertionError(f"no kernel named like {match!r} was traced")
-    return total / 1e3
+    for _ in range(DEVICE_TRACES):
+        traced = []
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: traced.extend(p.key_averages())
+                     ) as prof:
+            for _ in range(2):
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        total = 0.0
+        for e in traced:
+            if any(m in e.key for m in names) and \
+                    e.self_device_time_total > 0:
+                per_call = max(1, round(e.count / iters))
+                total += e.self_device_time_total / e.count * per_call
+        if total > 0.0:
+            return total / 1e3
+        print(f"  (a device trace held no kernel named like {match!r}; "
+              "tracing again)")
+    raise AssertionError(f"no kernel named like {match!r} was traced in "
+                         f"{DEVICE_TRACES} traces")
 
 
 def l2_agreement(x, c, valid, kernel, plain):
@@ -1272,21 +1298,31 @@ def kv_path(rt, dev, gen, all_kernels, int_rate):
               ("exact", sx, (0, 0, 0)))
     for run, steps, wants in traces:
         mode = run.split(",")[0]
-        kv.kops.l2_absorb_heads = unfused_absorb if "unfused" in run \
-            else real_absorb
-        try:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                kv.clustered_decode(params, cfg,
-                                    tokens[:, :KV_PROMPT + KV_BUSY_STEPS],
-                                    KV_PROMPT, mode=mode,
-                                    gcfg=kv.default_kv_config(KV_KMAX),
-                                    ema=KV_EMA, refresh_every=KV_REFRESH,
-                                    device=dev)
-        finally:
-            kv.kops.l2_absorb_heads = real_absorb
-        busy, events, traced, named = busy_per_range(
-            prof, kv.STEP_SPAN, skip=1, names=step_kernels)
+        # a trace can drop device events (it has counted 27 of a step's
+        # 28 decode kernels in some steps); the counts must hold in one
+        # of DEVICE_TRACES traces
+        for attempt in range(DEVICE_TRACES):
+            kv.kops.l2_absorb_heads = unfused_absorb if "unfused" in run \
+                else real_absorb
+            try:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    kv.clustered_decode(
+                        params, cfg, tokens[:, :KV_PROMPT + KV_BUSY_STEPS],
+                        KV_PROMPT, mode=mode,
+                        gcfg=kv.default_kv_config(KV_KMAX), ema=KV_EMA,
+                        refresh_every=KV_REFRESH, device=dev)
+            finally:
+                kv.kops.l2_absorb_heads = real_absorb
+            busy, events, traced, named = busy_per_range(
+                prof, kv.STEP_SPAN, skip=1, names=step_kernels)
+            short = [(name, counts) for (name, counts), want
+                     in zip(named.items(), wants)
+                     if len(counts) != KV_BUSY_STEPS - 1
+                     or set(counts) != {want}]
+            if not short:
+                break
+            print(f"  ({run}: the trace counted {short}; tracing again)")
         print(f"  {run} decode step, device: {busy:.3f} ms of kernels and "
               f"copies, {events:.0f} device events (torch.profiler, steps "
               f"2-{KV_BUSY_STEPS}); busy share {busy / steps[1:].mean():.1%}"
@@ -1295,7 +1331,8 @@ def kv_path(rt, dev, gen, all_kernels, int_rate):
         for (name, counts), want in zip(named.items(), wants):
             if len(counts) != KV_BUSY_STEPS - 1 or set(counts) != {want}:
                 raise AssertionError(f"{run}: {name} ran {counts} times in "
-                                     f"the traced steps, not {want} a step")
+                                     f"the traced steps, not {want} a step, "
+                                     f"in {DEVICE_TRACES} traces")
         print(f"    traced on the device, a step: "
               f"{', '.join(f'{n} {c[0]}' for n, c in named.items())} "
               f"(in each of the {KV_BUSY_STEPS - 1} steps)")
@@ -1590,7 +1627,8 @@ def stream_phase(rt, dev, kernels, mesh, dense, het, url):
     """Phase 13: the streaming fit on the card, against the in-core fits
     of phases 4, 7 and 8 (``dense`` / ``het`` / ``url``: their results on
     the host, their data as host arrays). Returns the launches on its
-    paths."""
+    paths and the seed-capped streamed dense model (phase 14 swaps to
+    it)."""
     phase("13 streaming fit: fit(chunk=) on the card")
     total = {k.__name__: 0 for k in kernels}
 
@@ -1640,6 +1678,7 @@ def stream_phase(rt, dev, kernels, mesh, dense, het, url):
           f"equal to the in-core fit")
     m_, res, wall, n_l = fit("dense", est, rt.DenseData(x),
                              chunk=CHUNK_DENSE, seed_cap=SEED_CAP)
+    capped = m_
     want, _ = rt.predict(m_, x)
     if int(res.k_star) <= 0 or not torch.equal(res.labels, want.cpu()):
         raise AssertionError("seed_cap: k* = 0 or labels differ from predict")
@@ -1672,7 +1711,438 @@ def stream_phase(rt, dev, kernels, mesh, dense, het, url):
     print(f"  GEEK.predict(batch={BATCH:,}) and (batch=, probes=1) on "
           f"{rows.shape[0]:,} rows equal their unbatched calls")
     print(f"  launches on the phase's paths {total}")
-    return total
+    return total, capped
+
+
+# phase 14: the serving tier at the reference's defaults, on fresh raw
+# rows in requests of log-uniform sizes in 1-4,096
+SERVE_ROWS = {"dense": 262_144, "hetero": 65_536, "sparse": 65_536}
+SERVE_MAX_BATCH, SERVE_DEADLINE_MS, SERVE_MIN_BUCKET = 4096, 5.0, 64
+SERVE_RESERVOIR, SERVE_POOL_ROWS, SERVE_HTTP = 8192, 65_536, (64, 64)
+SERVE_REFIT_ROWS = 32_768
+# phase 15: the baselines at k = 1,024; Lloyd and sampled k-means sweep
+# 10 times (launch/cluster.py's setting), sampled k-means on 256·k rows
+BASE_K, BASE_ITERS, BASE_SEED = 1024, 10, 15
+LLOYD_INERTIA_RTOL, LLOYD_LABELS_EQUAL = 1e-4, 0.999
+
+
+def request_sizes(total, seed):
+    """Request sizes drawn log-uniform in [1, SERVE_MAX_BATCH] from a
+    seeded generator, until ``total`` rows (the last one cut)."""
+    rng = np.random.default_rng(seed)
+    sizes, left = [], total
+    while left > 0:
+        n = int(np.exp(rng.uniform(0.0, math.log(SERVE_MAX_BATCH + 1))))
+        n = max(1, min(n, SERVE_MAX_BATCH, left))
+        sizes.append(n)
+        left -= n
+    return sizes
+
+
+def drive(server, parts, sizes, *, swap_at=None, swap_to=None,
+          observe=None):
+    """Submit ``sizes`` requests of consecutive host rows of ``parts`` as
+    fast as they go (an open-loop burst), swapping to ``swap_to`` before
+    request ``swap_at`` once the first request has been served (so both
+    versions serve). Returns ([(offset, n, Assignment, latency s)], wall s
+    from the first submit to the last resolution)."""
+    done = {}
+    futs, off = [], 0
+    t0 = time.perf_counter()
+    for i, n in enumerate(sizes):
+        if i == swap_at:
+            futs[0][3].result(timeout=600)
+            server.swap(swap_to)
+        rows = tuple(None if p is None else p[off:off + n] for p in parts)
+        if observe is not None:
+            observe(rows)
+        t = time.perf_counter()
+        fut = server.submit(rows)
+        fut.add_done_callback(
+            lambda _f, i=i: done.__setitem__(i, time.perf_counter()))
+        futs.append((off, n, t, fut))
+        off += n
+    out = [(o, n, f.result(timeout=600), t) for o, n, t, f in futs]
+    wall = max(done.values()) - t0
+    return [(o, n, a, done[i] - t) for i, (o, n, a, t) in enumerate(out)], \
+        wall
+
+
+def served_check(results, want, what, versions=None):
+    """Every request's labels equal ``want`` (labels, dists) of its
+    version (``versions[v]``, or ``want`` itself) on its rows, distances
+    within 1e-6 relative. Returns the versions seen, in submit order."""
+    seen = []
+    for off, n, a, _ in results:
+        wl, wd = want if versions is None else versions[a.version]
+        wl = wl[off:off + n]
+        wd = wd[off:off + n]
+        if not np.array_equal(a.labels, wl):
+            raise AssertionError(f"{what}: a request's labels differ from "
+                                 f"predict (rows {off}..{off + n})")
+        if not np.allclose(a.dists, wd, rtol=1e-6, atol=0):
+            raise AssertionError(f"{what}: distances beyond 1e-6 relative")
+        seen.append(a.version)
+    return seen
+
+
+def serve_report(name, server, results, wall, rows):
+    """Print one stream's throughput, latency, padding and flushes."""
+    lat = np.asarray([r[3] for r in results]) * 1e3
+    st = server.stats()
+    padded = st["padded_rows"] / max(st["padded_rows"] + st["rows_served"],
+                                     1)
+    print(f"  {name}: {rows:,} rows in {len(results)} requests: "
+          f"{rows / wall:,.0f} points/s, request latency p50 "
+          f"{np.percentile(lat, 50):.3f} ms, p99 {np.percentile(lat, 99):.3f}"
+          f" ms; {st['batches']} micro-batches, padded share {padded:.4f}, "
+          f"flushes {st['flushes']}, failed {st['failed']}")
+    if st["failed"]:
+        raise AssertionError(f"{name}: {st['failed']} requests failed")
+    return dict(points_s=rows / wall, p50_ms=float(np.percentile(lat, 50)),
+                p99_ms=float(np.percentile(lat, 99)), padded=padded,
+                batches=st["batches"], flushes=st["flushes"])
+
+
+def serve_phase(rt, dev, gen, kernels, dense, het, url, capped):
+    """Phase 14: the serving tier on the card, over the models phases 4,
+    7 and 8 fitted (``dense`` / ``het`` / ``url``) and the seed-capped
+    streamed dense model of phase 13 (``capped``, the hot-swap target).
+    Returns the launches on its paths."""
+    import threading
+    import urllib.request
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.data.synthetic import geonames_like, sift_like, url_like
+    from repro_torch.serve import (ClusterFrontend, ClusterServer,
+                                   RefitAutopilot, WorkerPool)
+    phase("14 serving: ClusterServer, WorkerPool, ClusterFrontend, "
+          "RefitAutopilot on the card")
+    total = {k.__name__: 0 for k in kernels}
+
+    def counted(fn, name):
+        reset_launches(*kernels)
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k.__name__: k.launches for k in kernels}
+        for k, v in got.items():
+            total[k] += v
+        print(f"    launches on {name}: {got}")
+        return out, got
+
+    kw = dict(max_batch=SERVE_MAX_BATCH, deadline_ms=SERVE_DEADLINE_MS,
+              min_bucket=SERVE_MIN_BUCKET)
+    sgen = torch.Generator(device=dev).manual_seed(14)
+    x = sift_like(sgen, n=SERVE_ROWS["dense"], k=K_TRUE).x
+    x_host = x.cpu().numpy()
+    model = dense["model"]
+    sizes = request_sizes(SERVE_ROWS["dense"], 0)
+    exact = tuple(t.cpu().numpy() for t in rt.predict(model, x))
+    after = tuple(t.cpu().numpy() for t in rt.predict(capped, x))
+    reports = {}
+    server = ClusterServer(model, **kw)
+    print(f"  dense model k*={int(model.k_star)} of {model.k_max}; swap "
+          f"target: phase 13's streamed fit with seed_cap={SEED_CAP:,} "
+          f"(k*={int(capped.k_star)}); ladder {server.ladder}; "
+          f"{len(sizes)} requests of {min(sizes)}..{max(sizes)} rows, mean "
+          f"{np.mean(sizes):.1f}")
+    server.warmup((x_host[:SERVE_MIN_BUCKET],))
+    (res, wall), n_l = counted(lambda: drive(
+        server, (x_host,), sizes, swap_at=len(sizes) // 2, swap_to=capped),
+        "the exact dense stream with a swap")
+    served_rows = [(off, n) for off, n, _, _ in res]
+    seen = served_check(res, None, "dense exact",
+                        versions={0: exact, 1: after})
+    if any(b < a for a, b in zip(seen, seen[1:])) or set(seen) != {0, 1}:
+        raise AssertionError(f"dense swap: versions {sorted(set(seen))} out "
+                             "of order or missing")
+    reports["dense exact"] = serve_report("dense exact, swap halfway", server,
+                                          res, wall, SERVE_ROWS["dense"])
+    if n_l["distance_argmin_l2"] < reports["dense exact"]["batches"]:
+        raise AssertionError("the exact dense stream did not launch the L2 "
+                             "kernel each micro-batch")
+    print(f"  swap: {seen.count(0)} requests on v0, {seen.count(1)} on v1, "
+          "in submit order; each request's labels are its version's "
+          "predict; none failed")
+    server.close()
+    # the same stream, no swap, traced: the device's busy share
+    server = ClusterServer(model, **kw)
+    server.warmup((x_host[:SERVE_MIN_BUCKET],))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("serve_stream"):
+            res, wall = drive(server, (x_host,), sizes)
+    served_check(res, exact, "dense exact (traced)")
+    busy, events, span, _ = busy_per_range(prof, "serve_stream")
+    print(f"  the exact dense stream traced: device busy {busy:.3f} ms of "
+          f"{span:.3f} ms ({busy / span:.1%}), {events:.0f} device events; "
+          f"untraced wall {wall * 1e3:.3f} ms")
+    reports["dense busy"] = busy / span
+    server.close()
+    server = ClusterServer(model, probes=1, **kw)
+    server.warmup((x_host[:SERVE_MIN_BUCKET],))
+    probed = tuple(t.cpu().numpy() for t in rt.predict(model, x, probes=1))
+    (res, wall), n_l = counted(lambda: drive(server, (x_host,), sizes),
+                               "the probed dense stream")
+    served_check(res, probed, "dense probes=1")
+    reports["dense probed"] = serve_report("dense probes=1", server, res,
+                                           wall, SERVE_ROWS["dense"])
+    server.close()
+    del x
+    for name, kind, make in (
+            ("hetero", het, lambda g, n: geonames_like(g, n=n, k=K_HET)[:2]),
+            ("sparse", url, lambda g, n: url_like(
+                g, n=n, k=K_URL, nnz=NNZ_URL, universe=U_URL)[:2])):
+        m_ = kind["model"]
+        parts = make(sgen, SERVE_ROWS[name])
+        host = tuple(p.cpu().numpy() for p in parts)
+        want = tuple(t.cpu().numpy() for t in rt.GEEK(kind["cfg"]).predict(
+            kind["data"](*parts), model=m_))
+        server = ClusterServer(m_, **kw)
+        server.warmup(tuple(p[:SERVE_MIN_BUCKET] for p in host))
+        (res, wall), _ = counted(lambda: drive(
+            server, host, request_sizes(SERVE_ROWS[name], 1)),
+            f"the {name} stream")
+        served_check(res, want, f"{name} exact")
+        reports[name] = serve_report(f"{name} exact ({m_.impl})", server,
+                                     res, wall, SERVE_ROWS[name])
+        server.close()
+        del parts
+    # two workers pinned to the one card: labels, not speed
+    pool = WorkerPool(model, devices=(dev, dev), **kw)
+    pool.warmup((x_host[:SERVE_MIN_BUCKET],))
+    (res, wall), _ = counted(lambda: drive(
+        pool, (x_host[:SERVE_POOL_ROWS],), request_sizes(SERVE_POOL_ROWS, 2)),
+        "the two-worker pool")
+    served_check(res, tuple(a[:SERVE_POOL_ROWS] for a in exact),
+                 "two-worker pool")
+    st = pool.stats()
+    print(f"  WorkerPool of 2 on {dev} (both workers on one card): "
+          f"{SERVE_POOL_ROWS:,} rows, labels equal predict; "
+          f"{SERVE_POOL_ROWS / wall:,.0f} points/s; rows per worker "
+          f"{[w['rows_served'] for w in st['workers']]}, routing "
+          f"{st['routing']}")
+    pool.close()
+    # the HTTP front end on loopback
+    server = ClusterServer(model, **kw)
+    reqs, rows = SERVE_HTTP
+    with ClusterFrontend(server) as fe:
+        t0 = time.perf_counter()
+        for i in range(reqs):
+            body = json.dumps({"rows": x_host[i * rows:(i + 1) * rows]
+                               .tolist()}).encode()
+            req = urllib.request.Request(
+                fe.url + "/v1/assign", data=body,
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=60) as r:
+                out = json.loads(r.read())
+            if out["labels"] != exact[0][i * rows:(i + 1) * rows].tolist():
+                raise AssertionError(f"HTTP request {i}: labels differ")
+        http_s = time.perf_counter() - t0
+    print(f"  ClusterFrontend on {fe.url.split('//')[1].split(':')[0]}: "
+          f"{reqs} JSON requests of {rows} rows answered with predict's "
+          f"labels, {http_s / reqs * 1e3:.3f} ms a request (sequential)")
+    # the autopilot: refit from the reservoir on its own thread while
+    # the server keeps serving fresh traffic on the same card
+    published = []
+
+    def refit():
+        published.append(ap.run_once())
+
+    ap = RefitAutopilot(server, dense["cfg"], reservoir=SERVE_RESERVOIR,
+                        min_rows=SERVE_RESERVOIR, seed=14)
+    for off, n in served_rows:          # the first stream's requests
+        ap.observe((x_host[off:off + n],))
+    refit_sizes = request_sizes(SERVE_REFIT_ROWS, 3)
+    t = threading.Thread(target=refit)
+
+    def concurrent():
+        t.start()
+        out = drive(server, (x_host[:SERVE_REFIT_ROWS],), refit_sizes)
+        t.join(timeout=600)
+        return out
+
+    (res, wall), n_l = counted(concurrent, "the refit + a concurrent stream")
+    st = ap.stats()
+    if published != [1] or st["published"] != 1:
+        raise AssertionError(f"the autopilot did not publish: {published}, "
+                             f"{st}")
+    new = server.model
+    versions = {0: exact, 1: tuple(t.cpu().numpy() for t in rt.predict(
+        new, torch.as_tensor(x_host[:SERVE_REFIT_ROWS], device=dev)))}
+    seen = served_check(res, None, "stream during the refit",
+                        versions=versions)
+    if n_l["minhash_segments"] < dense["cfg"].silk_l:
+        raise AssertionError("the refit did not launch the MinHash kernel")
+    print(f"  RefitAutopilot.run_once() on a {st['reservoir_rows']:,}-row "
+          f"reservoir of the served dense traffic: published v1, k*="
+          f"{int(new.k_star)}, gates passed (k_star, coverage, "
+          f"self_assign); {len(refit_sizes)} requests served meanwhile "
+          f"({seen.count(0)} on v0, {seen.count(1)} on v1), each its "
+          "version's labels")
+    server.close()
+    print(f"  launches on the phase's paths {total}")
+    return total, reports
+
+
+@contextlib.contextmanager
+def plain_baselines():
+    """The baselines' assignments through the plain functions of
+    ``core.assign`` on the card (the yardstick; never the main path)."""
+    from repro_torch.core import assign, baselines
+    saved = baselines.kops
+    baselines.kops = types.SimpleNamespace(
+        distance_argmin_l2=lambda x, c, v, block=4096: assign.assign_l2(
+            x, c, v, block=block),
+        distance_argmin_hamming=lambda x, c, v, block=4096:
+        assign.assign_hamming(x, c, v, block=block))
+    try:
+        yield
+    finally:
+        baselines.kops = saved
+
+
+@contextlib.contextmanager
+def shadowed_baselines(near_ties):
+    """The baselines' L2 assignments through the kernel, each held to the
+    plain assignment of the same rows and centers (``l2_agreement``: labels
+    equal but at near-ties); each call's (near-ties, rows) is appended
+    to ``near_ties``."""
+    from repro_torch.core import assign, baselines
+    saved = baselines.kops
+
+    def l2(x, c, v, block=4096):
+        out = saved.distance_argmin_l2(x, c, v, block=block)
+        ties, _ = l2_agreement(x, c, v, out, assign.assign_l2(x, c, v,
+                                                               block=block))
+        near_ties.append((ties, x.shape[0]))
+        return out
+
+    baselines.kops = types.SimpleNamespace(
+        distance_argmin_l2=l2,
+        distance_argmin_hamming=saved.distance_argmin_hamming)
+    try:
+        yield
+    finally:
+        baselines.kops = saved
+
+
+def base_phase(rt, dev, kernels, dense, het):
+    """Phase 15: the §4.1 baselines on phase 4's dense rows and phase 7's
+    hetero codes, each through the kernels and through the plain path
+    from the same generator state. Returns the launches on its paths."""
+    from repro_torch.core import baselines as B
+    phase(f"15 baselines at k = {BASE_K:,}: seed_then_assign, Lloyd, "
+          "sampled k-means, k-modes, kernels vs plain")
+    total = {k.__name__: 0 for k in kernels}
+    rows = {}
+
+    def run(name, fn):
+        """fn(generator) through the kernels (counted, timed), then plain."""
+        reset_launches(*kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn(torch.Generator(device=dev).manual_seed(BASE_SEED))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_l = {k.__name__: k.launches for k in kernels}
+        for k, v in n_l.items():
+            total[k] += v
+        with plain_baselines():
+            t0 = time.perf_counter()
+            plain = fn(torch.Generator(device=dev).manual_seed(BASE_SEED))
+            torch.cuda.synchronize()
+            plain_wall = time.perf_counter() - t0
+        return got, plain, wall, plain_wall, n_l
+
+    x = torch.as_tensor(dense["x_fit"], device=dev)
+    geek_inertia = float((dense["dists"].double() ** 2).mean())
+    print(f"  GEEK (phase 4): fit {dense['fit_s']:.3f} s at k*="
+          f"{dense['k_star']}, inertia (mean squared distance) "
+          f"{geek_inertia:.6f}")
+    for method in ("kmeans++", "scalable-kmeans++", "random"):
+        got, plain, wall, pwall, n_l = run(
+            method, lambda g: B.seed_then_assign(x, BASE_K, g, method=method))
+        same = torch.equal(got.centers, plain.centers)
+        if method != "scalable-kmeans++" and not same:
+            raise AssertionError(f"{method}: the plain path drew other seeds")
+        if not same:
+            # k-means‖ draws its later candidates from the assignment's d²,
+            # which the kernel and the plain product round differently
+            diff = int((got.centers != plain.centers).any(1).sum())
+            print(f"    {method}: {diff} of {BASE_K} seeds differ from the "
+                  "plain path's (candidate rounds draw from each path's "
+                  "own d²); held on the kernel path's own centers")
+            with plain_baselines():
+                plain = B._one_pass(x, got.centers, got.center_valid, 4096, 0)
+        ties, err = l2_agreement(x, got.centers, got.center_valid,
+                                 (got.labels, got.dists ** 2),
+                                 (plain.labels, plain.dists ** 2))
+        inertia = float((got.dists.double() ** 2).mean())
+        rows[method] = dict(s=wall, plain_s=pwall, inertia=inertia)
+        print(f"  seed_then_assign {method}: {wall:.3f} s (plain path "
+              f"{pwall:.3f} s), inertia {inertia:.6f}; seeds equal the "
+              f"plain path's: {same}; labels agree but {ties} near-ties, "
+              f"max |Δd²| {err:.3g}; launches {n_l}")
+    for name, fn in (
+            ("lloyd", lambda g: B.lloyd(x, BASE_K, g, iters=BASE_ITERS)),
+            ("sampled", lambda g: B.sampled_kmeans(x, BASE_K, g,
+                                                   iters=BASE_ITERS))):
+        got, plain, wall, pwall, n_l = run(name, fn)
+        gi = float((got.dists.double() ** 2).mean())
+        pi = float((plain.dists.double() ** 2).mean())
+        eq = float((got.labels == plain.labels).float().mean())
+        if abs(gi / pi - 1.0) > LLOYD_INERTIA_RTOL:
+            raise AssertionError(f"{name}: inertia {gi} vs plain {pi}")
+        # every sweep's kernel assignment against the plain assignment of
+        # the same centers (two independent runs drift apart: a near-tie
+        # flip moves two centers, and the next sweep's boundaries with
+        # them)
+        sweeps = []
+        with shadowed_baselines(sweeps):
+            fn(torch.Generator(device=dev).manual_seed(BASE_SEED))
+        worst = min(1.0 - t / n for t, n in sweeps)
+        if worst < LLOYD_LABELS_EQUAL:
+            raise AssertionError(f"{name}: a sweep's labels equal the plain "
+                                 f"assignment's on {worst:.6f} of rows")
+        rows[name] = dict(s=wall, plain_s=pwall, inertia=gi)
+        print(f"  {name} ({BASE_ITERS} sweeps): {wall:.3f} s (plain path "
+              f"{pwall:.3f} s), inertia {gi:.6f} (plain {pi:.6f}, "
+              f"{abs(gi / pi - 1.0):.2e} apart); final labels equal the "
+              f"plain run's on {eq:.6f} of rows; each of its {len(sweeps)} "
+              f"assignments equals the plain one on the same centers but at "
+              f"{max(t for t, _ in sweeps)} near-ties (at least {worst:.6f} equal); "
+              f"launches {n_l}")
+    # Lloyd's first sweep: the assignment of its random initial centers
+    c0 = B.random_seeds(x, BASE_K, torch.Generator(device=dev).manual_seed(
+        BASE_SEED))
+    ones = torch.ones(BASE_K, dtype=torch.bool, device=dev)
+    first = B._one_pass(x, c0, ones, 4096, 0)
+    with plain_baselines():
+        first_p = B._one_pass(x, c0, ones, 4096, 0)
+    ties, _ = l2_agreement(x, c0, ones, (first.labels, first.dists ** 2),
+                           (first_p.labels, first_p.dists ** 2))
+    print(f"  Lloyd's first sweep (its random centers): labels agree with "
+          f"the plain path but {ties} near-ties")
+    del x
+    codes = het["model"].encode(*parts_on(het["parts"], dev))
+    geek_mm = float(het["dists"].double().mean())
+    got, plain, wall, pwall, n_l = run("kmodes", lambda g: B.kmodes(
+        codes, BASE_K, g))
+    for f in ("labels", "centers", "center_valid", "dists", "radius"):
+        if not torch.equal(getattr(got, f), getattr(plain, f)):
+            raise AssertionError(f"kmodes: {f} differ from the plain path")
+    mm = float(got.dists.double().mean())
+    rows["kmodes"] = dict(s=wall, plain_s=pwall, inertia=mm)
+    print(f"  kmodes on phase 7's codes {tuple(codes.shape)} ({got.iters} "
+          f"sweeps): {wall:.3f} s (plain path {pwall:.3f} s), mean mismatch "
+          f"{mm:.6f}; labels, centers and distances equal the plain path's "
+          f"bit for bit; launches {n_l}")
+    print(f"  GEEK (phase 7): fit {het['fit_s']:.3f} s at k*={het['k_star']},"
+          f" mean mismatch {geek_mm:.6f}")
+    print(f"  launches on the phase's paths {total}")
+    return total, rows
 
 
 T0 = time.perf_counter()
@@ -2278,11 +2748,21 @@ def run_paths(rt, dev, gen, card, int_rate, popc_rate, data, x_fit, x_new,
     new_paths = index_phase(rt, dev, gen, all_kernels, dense, het, url)
     del dense["x_new"]
     torch.cuda.empty_cache()
-    for k, v in stream_phase(rt, dev, all_kernels, mesh, dense, het,
-                             url).items():
+    streamed, capped = stream_phase(rt, dev, all_kernels, mesh, dense, het,
+                                    url)
+    for k, v in streamed.items():
         new_paths[k] += v
-    print(f"  launches on the new paths (phases 12 and 13) {new_paths}, "
-          "added to the kernels line")
+    print(f"  launches on phases 12 and 13's paths {new_paths}")
+    torch.cuda.empty_cache()
+    served, _ = serve_phase(rt, dev, gen, all_kernels, dense, het, url,
+                            capped)
+    del capped
+    torch.cuda.empty_cache()
+    based, _ = base_phase(rt, dev, all_kernels, dense, het)
+    for k in new_paths:
+        new_paths[k] += served[k] + based[k]
+    print(f"  launches on the new paths (phases 12-15) {new_paths}, added "
+          "to the kernels line")
     kernels = [
         {"name": "distance_argmin_l2", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/distance_argmin.cu",

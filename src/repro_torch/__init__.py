@@ -39,7 +39,9 @@ found by name. The hand-written CUDA kernels live in
 from repro_torch.checkpoint.manager import restore_model, save_model
 from repro_torch.configs import get_arch
 from repro_torch.core.api import (GEEK, DenseData, HeteroData, KernelAssigner,
-                                  LSHBucketer, SILKSeeder, SparseData)
+                                  KMeansPPSeeder, LSHBucketer,
+                                  ScalableKMeansPPSeeder, SILKSeeder,
+                                  SparseData)
 from repro_torch.core.distributed import make_fit_dense, make_predict_sharded
 from repro_torch.core.geek import GeekConfig, GeekResult
 from repro_torch.core.model import GeekModel, predict
@@ -48,8 +50,9 @@ from repro_torch.serve.kv_cluster import OnlineKVCluster, clustered_decode
 from repro_torch.utils.compat import Mesh, make_mesh
 
 __all__ = sorted(["DenseData", "GEEK", "GeekConfig", "GeekModel", "GeekResult",
-                  "HeteroData", "KernelAssigner", "LSHBucketer", "Mesh",
-                  "OnlineKVCluster", "SILKSeeder", "SparseData",
+                  "HeteroData", "KMeansPPSeeder", "KernelAssigner",
+                  "LSHBucketer", "Mesh", "OnlineKVCluster", "SILKSeeder",
+                  "ScalableKMeansPPSeeder", "SparseData",
                   "clustered_decode", "get_arch", "init_params",
                   "make_fit_dense", "make_mesh", "make_predict_sharded",
                   "predict", "restore_model", "save_model"])

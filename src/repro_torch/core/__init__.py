@@ -1,17 +1,17 @@
 """Core pipeline: LSH buckets, SILK seeding, centers and assignment, the facade.
 
-Re-exports the names of ``repro.core.__all__`` that the port has, so that
-``from repro_torch.core import GEEK`` works where ``from repro.core import
-GEEK`` does; the surface is locked by ``tests/test_torch_api_surface.py``.
-Not ported yet, so not exported: ``KMeansPPSeeder`` and
-``ScalableKMeansPPSeeder`` (ROADMAP.md, Queue 1 item 10).
+Re-exports every name of ``repro.core.__all__``, so that ``from
+repro_torch.core import GEEK`` works where ``from repro.core import GEEK``
+does; the surface is locked by ``tests/test_torch_api_surface.py``.
 """
 from repro_torch.core.api import (  # noqa: F401
     GEEK,
     DenseData,
     HeteroData,
     KernelAssigner,
+    KMeansPPSeeder,
     LSHBucketer,
+    ScalableKMeansPPSeeder,
     SILKSeeder,
     SparseData,
     as_dataset,
@@ -36,7 +36,7 @@ from repro_torch.core.transform import (  # noqa: F401
     SparseTransform,
 )
 
-#: the ported public surface (sorted; locked by tests/test_torch_api_surface.py)
+#: the public surface (sorted; locked by tests/test_torch_api_surface.py)
 __all__ = [
     "CenterIndex",
     "DenseData",
@@ -47,10 +47,12 @@ __all__ = [
     "HeteroData",
     "HeteroTransform",
     "IdentityTransform",
+    "KMeansPPSeeder",
     "KernelAssigner",
     "LSHBucketer",
     "NumericDiscretizer",
     "SILKSeeder",
+    "ScalableKMeansPPSeeder",
     "SeedPairs",
     "Seeds",
     "SparseData",

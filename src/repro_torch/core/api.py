@@ -18,7 +18,10 @@ buckets over coded items for hetero and sparse rows), ``SILKSeeder`` and
 ``KernelAssigner``. Randomness is drawn in one place,
 ``LSHBucketer.split_key``, from a ``torch.Generator``. ``discover`` takes
 the drawn arrays as arguments, so a caller can hand it arrays drawn
-elsewhere (the parity tests hand it the reference's JAX-drawn ones).
+elsewhere (the parity tests hand it the reference's JAX-drawn ones). The
+§4.1 seeders ``KMeansPPSeeder`` and ``ScalableKMeansPPSeeder``
+(``needs_buckets=False``) skip the LSH draws and bucketing and draw from
+the fit's generator themselves.
 
 ``mesh=`` (a ``utils.compat.Mesh`` over a ``torch.distributed`` process
 group: NCCL on cards, gloo on CPU processes) shards the fit and predict
@@ -45,6 +48,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import assign as assign_mod
+from repro_torch.core import baselines as baselines_mod
 from repro_torch.core import distributed as dist_mod
 from repro_torch.core import lsh
 from repro_torch.core.buckets import (BucketTables, partition_by_signature,
@@ -59,8 +63,8 @@ from repro_torch.core.model import predict as model_predict
 from repro_torch.core.silk import Seeds, silk_seeding
 from repro_torch.core.transform import HeteroTransform, IdentityTransform
 from repro_torch.utils import compat
-from repro_torch.utils.device import (full_precision_matmul, parts_to_device,
-                                      resolve_device)
+from repro_torch.utils.device import (as_generator, full_precision_matmul,
+                                      parts_to_device, resolve_device)
 from repro_torch.utils.hashing import derive_hash_keys
 
 
@@ -276,9 +280,14 @@ class LSHBucketer:
 
 @dataclasses.dataclass(frozen=True)
 class SILKSeeder:
-    """The paper's SILK seeding — k* discovered from similar buckets."""
+    """The paper's SILK seeding — k* discovered from similar buckets.
+
+    ``needs_buckets=True``: the facade builds the bucketer's LSH tables
+    and hands them over; the seeder never touches raw data.
+    """
 
     name: ClassVar[str] = "silk"
+    needs_buckets: ClassVar[bool] = True
 
     def seed(self, space: torch.Tensor, buckets: BucketTables,
              table_keys: torch.Tensor, cfg: GeekConfig
@@ -288,6 +297,76 @@ class SILKSeeder:
         return silk_seeding(buckets, table_keys, silk_k=cfg.silk_k,
                             silk_l=cfg.silk_l, delta=cfg.delta,
                             pair_cap=cfg.pair_cap, k_max=cfg.k_max)
+
+
+def _index_seeds(idx: torch.Tensor, k: int, k_max: int) -> Seeds:
+    """Wrap k seed-point row indices in the ``Seeds`` contract.
+
+    Singleton groups: group j holds exactly data row ``idx[j]``, so the
+    centroid centers are the seed rows bit for bit (a one-row segment
+    mean is the row itself).
+    """
+    if k > k_max:
+        raise ValueError(f"seeder k={k} exceeds GeekConfig.k_max={k_max}")
+    dev = idx.device
+    return Seeds(group=torch.arange(k, dtype=torch.int32, device=dev),
+                 id=idx.to(torch.int32),
+                 valid=torch.ones((k,), dtype=torch.bool, device=dev),
+                 k_star=torch.tensor(k, dtype=torch.int32, device=dev),
+                 k_max=k_max)
+
+
+@dataclasses.dataclass(frozen=True)
+class KMeansPPSeeder:
+    """k-means++ D² seeding behind the Seeds contract (k pre-specified).
+
+    ``needs_buckets=False``: the facade skips LSH bucketing, draws nothing
+    itself and hands the seeder the whole fit generator, so
+    ``GEEK(cfg, seeder=KMeansPPSeeder(k)).fit(DenseData(x), seed)``
+    assigns exactly like ``baselines.seed_then_assign(x, k, seed)``, bit
+    for bit on one device. L2 spaces only: D² sampling has no meaning
+    over categorical codes.
+    """
+
+    k: int
+    name: ClassVar[str] = "kmeans++"
+    needs_buckets: ClassVar[bool] = False
+    metrics: ClassVar[tuple[str, ...]] = ("l2",)
+
+    def seed(self, space: torch.Tensor, buckets, gen: torch.Generator,
+             cfg: GeekConfig) -> tuple[Seeds, torch.Tensor]:
+        """Draw k D²-sampled seed rows as singleton seed groups."""
+        del buckets
+        idx = baselines_mod.kmeanspp_indices(space, self.k, gen)
+        return _index_seeds(idx, self.k, cfg.k_max), torch.zeros(
+            (), dtype=torch.int32, device=space.device)
+
+
+@dataclasses.dataclass(frozen=True)
+class ScalableKMeansPPSeeder:
+    """k-means‖ (Bahmani et al. '12) behind the Seeds contract.
+
+    Oversample, then reduce: ``rounds`` rounds of ``oversample``
+    D²-proportional draws, candidates weighted by attraction, reduced to
+    k by weighted k-means++ (``baselines.scalable_kmeanspp_indices``).
+    """
+
+    k: int
+    rounds: int = 5
+    oversample: int | None = None
+    name: ClassVar[str] = "scalable-kmeans++"
+    needs_buckets: ClassVar[bool] = False
+    metrics: ClassVar[tuple[str, ...]] = ("l2",)
+
+    def seed(self, space: torch.Tensor, buckets, gen: torch.Generator,
+             cfg: GeekConfig) -> tuple[Seeds, torch.Tensor]:
+        """Oversample + reduce to k singleton seed groups."""
+        del buckets
+        idx = baselines_mod.scalable_kmeanspp_indices(
+            space, self.k, gen, rounds=self.rounds,
+            oversample=self.oversample, block=cfg.assign_block)
+        return _index_seeds(idx, self.k, cfg.k_max), torch.zeros(
+            (), dtype=torch.int32, device=space.device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -324,16 +403,20 @@ def discover(kind: str, parts: tuple, cfg: GeekConfig, bucketer, seeder, *,
     """Stage 1 + 2: fit the transform, bucket, seed.
 
     ``tkeys`` / ``bkeys`` / ``skeys`` are the drawn arrays
-    (``LSHBucketer.split_key``). ``code`` optionally replaces the
-    default ``transform(*parts)`` with ``code(transform, parts)`` (the
-    gathered sparse fit codes each rank's rows and gathers the narrow
-    codes, not the raw sets). ``boundaries`` goes to the bucketer's
-    ``fit_transform``. Returns ``(transform, space, seeds, overflow)``.
+    (``LSHBucketer.split_key``); for a seeder with ``needs_buckets=False``
+    they are ``(None, None, generator)``: no bucket tables are built and
+    the seeder draws from the fit's generator itself. ``code`` optionally
+    replaces the default ``transform(*parts)`` with ``code(transform,
+    parts)`` (the gathered sparse fit codes each rank's rows and gathers
+    the narrow codes, not the raw sets). ``boundaries`` goes to the
+    bucketer's ``fit_transform``. Returns ``(transform, space, seeds,
+    overflow)``.
     """
     transform = bucketer.fit_transform(kind, parts, tkeys, cfg,
                                        boundaries=boundaries)
     space = transform(*parts) if code is None else code(transform, parts)
-    buckets = bucketer.buckets(kind, space, bkeys, cfg)
+    buckets = (bucketer.buckets(kind, space, bkeys, cfg)
+               if bkeys is not None else None)
     seeds, overflow = seeder.seed(space, buckets, skeys, cfg)
     return transform, space, seeds, overflow
 
@@ -538,13 +621,24 @@ class GEEK:
         self.result_: GeekResult | None = None
         self.stream_peak_bytes_: int | None = None
 
-    def _generator(self, seed) -> torch.Generator:
-        if isinstance(seed, torch.Generator):
-            if seed.device.type != self.device.type:
-                raise ValueError(f"generator on {seed.device}, estimator on "
-                                 f"{self.device}")
-            return seed
-        return torch.Generator(device=self.device).manual_seed(int(seed))
+    def _draws(self, kind: str, seed, d: int) -> tuple:
+        """The fit's randomness: ``split_key``'s arrays, or, for a seeder
+        with ``needs_buckets=False``, no LSH draw at all and the whole
+        generator for the seeder (what makes ``KMeansPPSeeder`` reproduce
+        ``baselines.seed_then_assign``)."""
+        gen = as_generator(seed, self.device)
+        if not getattr(self.seeder, "needs_buckets", True):
+            return None, None, gen
+        return self.bucketer.split_key(kind, gen, d, self.cfg)
+
+    def _check_pipeline(self, kind: str) -> None:
+        """Reject seeders that cannot run in this kind's metric space."""
+        metric = self.bucketer.metric(kind)
+        allowed = getattr(self.seeder, "metrics", None)
+        if allowed is not None and metric not in allowed:
+            raise ValueError(
+                f"seeder {self.seeder.name!r} supports metrics {allowed}, "
+                f"but {kind!r} data assigns in {metric!r}")
 
     def fit(self, data, seed, *, mesh=None, mesh_axis: str = "data",
             chunk: int | None = None, seed_cap: int | None = None,
@@ -604,6 +698,7 @@ class GEEK:
             global (n,) on every rank).
         """
         data = as_dataset(data)
+        self._check_pipeline(data.kind)
         if boundaries not in ("reservoir", "exact"):
             raise ValueError(f"boundaries must be 'reservoir' or 'exact', "
                              f"got {boundaries!r}")
@@ -630,8 +725,7 @@ class GEEK:
                 raise ValueError("seed_cap needs a bounded-memory mode: "
                                  "pass chunk= (streaming) or mesh= (sharded)")
             d = next(p for p in parts if p is not None).shape[1]
-            keys = self.bucketer.split_key(data.kind, self._generator(seed),
-                                           d, self.cfg)
+            keys = self._draws(data.kind, seed, d)
             result, model = _fit_incore(parts, keys, cfg=self.cfg,
                                         kind=data.kind,
                                         bucketer=self.bucketer,
@@ -665,7 +759,7 @@ class GEEK:
                                          cfg.t_cat).to(self.device)
         present = parts_to_device(sample, self.device)
         d = next(p for p in present if p is not None).shape[1]
-        keys = self.bucketer.split_key(kind, self._generator(seed), d, cfg)
+        keys = self._draws(kind, seed, d)
         model, seeds, overflow = _seed_reservoir(
             present, keys, bounds, cfg=cfg, kind=kind,
             bucketer=self.bucketer, seeder=self.seeder,
@@ -694,7 +788,7 @@ class GEEK:
         if mode == "gathered" and stride == 1:
             _check_gather_bytes(kind, parts, n, cfg)
         d = next(p for p in parts if p is not None).shape[1]
-        keys = self.bucketer.split_key(kind, self._generator(seed), d, cfg)
+        keys = self._draws(kind, seed, d)
         common = dict(cfg=cfg, kind=kind, bucketer=self.bucketer,
                       seeder=self.seeder, assigner=self.assigner)
         if mode == "sharded":

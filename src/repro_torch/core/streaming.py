@@ -190,8 +190,11 @@ class _Stager:
     copy stream: ``put(i, parts)`` fills slot ``i % 2`` once its previous
     copy has left it, copies it to the device on the copy stream once the
     compute stream is done with that slot's device buffer, and makes the
-    compute stream wait for the copy. ``done(i)`` marks slot ``i % 2``'s
-    device buffer free. The buffers are allocated once, before the pass."""
+    compute stream wait for the copy; it returns the slot's device
+    buffers cut to the parts' rows (at most ``rows``). ``done(i)`` marks
+    slot ``i % 2``'s device buffer free. The buffers are allocated once,
+    before the pass (``serve.engine`` shares them between micro-batches
+    of up to ``rows`` rows)."""
 
     def __init__(self, like: tuple, rows: int, device: torch.device):
         self.stream = torch.cuda.Stream(device)
@@ -213,20 +216,20 @@ class _Stager:
         self.freed = [torch.cuda.Event() for _ in range(2)]
 
     def put(self, i: int, parts: tuple) -> tuple:
-        s = i % 2
+        s, m = i % 2, _rows(parts)
         self.copied[s].synchronize()          # the pinned slot is free again
         for h, p in zip(self.host[s], parts):
             if h is not None:
-                h.copy_(torch.from_numpy(p))
+                h[:m].copy_(torch.from_numpy(p))
         with torch.cuda.stream(self.stream):
             if i >= 2:
                 self.stream.wait_event(self.freed[s])
             for d, h in zip(self.dev[s], self.host[s]):
                 if d is not None:
-                    d.copy_(h, non_blocking=True)
+                    d[:m].copy_(h[:m], non_blocking=True)
             self.copied[s].record(self.stream)
         torch.cuda.current_stream().wait_event(self.copied[s])
-        return tuple(self.dev[s])
+        return tuple(None if d is None else d[:m] for d in self.dev[s])
 
     def done(self, i: int) -> None:
         self.freed[i % 2].record(torch.cuda.current_stream())

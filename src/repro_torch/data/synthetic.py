@@ -1,8 +1,9 @@
 """Synthetic data with known cluster structure, drawn on the device.
 
 The counterpart of ``repro.data.synthetic``, shaped after the paper's
-Table 2 corpora: SIFT-like dense vectors, GeoNames-like heterogeneous
-rows (numeric + categorical) and URL-like sparse sets. The draws come
+Table 2 corpora: GIST- and SIFT-like dense vectors, GeoNames-like
+heterogeneous rows (numeric + categorical) and URL-like sparse sets. The
+draws come
 from a ``torch.Generator`` on the device the data is made on, so a
 large set needs no host-to-device copy. The same seed gives other
 numbers than the reference's ``jax.random`` draws.
@@ -41,6 +42,11 @@ def dense_blobs(gen: torch.Generator, n: int, d: int, k: int, *,
     x = torch.randn((n, d), generator=gen, device=dev, dtype=dtype)
     x.mul_(spread).add_(centers[labels])   # in place: one (n, d) buffer
     return DenseBlobs(x, labels.to(torch.int32))
+
+
+def gist_like(gen: torch.Generator, n: int = 4096, k: int = 32) -> DenseBlobs:
+    """GIST-shaped blobs: d = 960 (the GIST1M descriptors' width)."""
+    return dense_blobs(gen, n, 960, k)
 
 
 def sift_like(gen: torch.Generator, n: int = 8192, k: int = 64) -> DenseBlobs:

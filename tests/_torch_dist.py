@@ -273,3 +273,51 @@ def table_sync_runs(mesh, sync: dict, runs=SYNC_RUNS) -> dict:
             valid=res.center_valid.numpy(), k_star=int(res.k_star),
             radius=res.radius.numpy(), overflow=int(res.overflow))
     return out
+
+
+# ---------------------------------------------------------------------------
+# What each rank computes for the mesh-serving tests (test_torch_serve.py)
+# ---------------------------------------------------------------------------
+
+#: request sizes rank 0 submits to a ``ClusterServer(mesh=)``
+SERVE_SIZES = (1, 7, 16, 33, 64, 5, 40)
+
+
+def serve_outputs(rank: int, world: int, ckpt_dir: str):
+    """Every rank restores the port checkpoint at ``ckpt_dir`` and stands a
+    ``ClusterServer(mesh=)`` up, exact and probed; rank 0 submits
+    ``SERVE_SIZES`` requests of ``blobs("dense", ...)`` rows and returns
+    each one's (offset, labels, dists, version); another rank returns
+    whether its own ``submit`` raised ``NotLeaderError``."""
+    import repro_torch as rt
+    from repro_torch.serve import ClusterServer
+    from repro_torch.serve.engine import NotLeaderError
+    mesh = rt.make_mesh()
+    model = rt.restore_model(ckpt_dir, mesh=mesh, device="cpu")
+    (x,) = blobs("dense", sum(SERVE_SIZES), 7)
+    out = {}
+    for probes in (None, 1):
+        server = ClusterServer(model, mesh=mesh, probes=probes, max_batch=64,
+                               min_bucket=8, deadline_ms=2.0)
+        if rank == 0:
+            futs, off = [], 0
+            for n in SERVE_SIZES:
+                futs.append((off, server.submit(x[off:off + n])))
+                off += n
+            got = []
+            for off, fut in futs:
+                a = fut.result(timeout=120)
+                got.append((off, a.labels, a.dists, a.version))
+            out[probes] = dict(results=got, ladder=server.ladder,
+                               stats=server.stats())
+            server.close(timeout=120)
+        else:
+            try:
+                server.submit(x[:1])
+                refused = False
+            except NotLeaderError:
+                refused = True
+            server.close(timeout=120)
+            out[probes] = dict(refused=refused,
+                               alive=server._worker.is_alive())
+    return out

@@ -3,14 +3,17 @@
 The port's supported surfaces are ``repro_torch``, ``repro_torch.core`` and
 ``repro_torch.serve`` ``__all__``. These snapshots fail when a surface grows
 or shrinks by accident: an intended change edits both the package's
-``__all__`` and the snapshot here. ``repro_torch.core`` exports the names
-of ``repro.core.__all__`` that are ported and nothing the reference lacks;
-the names still to port are listed, each with its ROADMAP.md item.
+``__all__`` and the snapshot here. ``repro_torch.core`` exports every name
+of ``repro.core.__all__`` and nothing the reference lacks (the names still
+to port would be listed, each with its ROADMAP.md item: none is left);
+``repro_torch.serve`` exports every name of ``repro.serve.__all__`` plus
+the port's stacked-layer KV names.
 """
 import pytest
 import torch
 
 import repro.core
+import repro.serve
 import repro_torch
 import repro_torch.core
 import repro_torch.serve
@@ -27,11 +30,13 @@ TORCH_ALL = [
     "GeekModel",
     "GeekResult",
     "HeteroData",
+    "KMeansPPSeeder",
     "KernelAssigner",
     "LSHBucketer",
     "Mesh",
     "OnlineKVCluster",
     "SILKSeeder",
+    "ScalableKMeansPPSeeder",
     "SparseData",
     "clustered_decode",
     "get_arch",
@@ -55,10 +60,12 @@ TORCH_CORE_ALL = [
     "HeteroData",
     "HeteroTransform",
     "IdentityTransform",
+    "KMeansPPSeeder",
     "KernelAssigner",
     "LSHBucketer",
     "NumericDiscretizer",
     "SILKSeeder",
+    "ScalableKMeansPPSeeder",
     "SeedPairs",
     "Seeds",
     "SparseData",
@@ -74,21 +81,34 @@ TORCH_CORE_ALL = [
     "update_centers",
 ]
 
-#: ``repro.core`` names not ported yet, by ROADMAP.md Queue 1 item
-CORE_NOT_PORTED = {"KMeansPPSeeder": 10, "ScalableKMeansPPSeeder": 10}
+#: ``repro.core`` names not ported yet, by ROADMAP.md Queue 1 item (none)
+CORE_NOT_PORTED: dict[str, int] = {}
 
 #: the locked serving surface — keep sorted
 TORCH_SERVE_ALL = [
+    "Assignment",
+    "ClusterFrontend",
+    "ClusterServer",
     "KVState",
     "LayerKVCluster",
+    "ModelRecord",
+    "ModelRegistry",
     "OnlineKVCluster",
+    "RefitAutopilot",
+    "ServerClosedError",
+    "WorkerPool",
     "clustered_attention",
     "clustered_decode",
     "default_kv_config",
     "ema_update",
     "make_layer_step",
+    "pad_ladder",
     "stack_heads",
 ]
+
+#: the port's serving names that ``repro.serve.__all__`` lacks
+SERVE_PORT_ONLY = {"LayerKVCluster", "default_kv_config", "make_layer_step",
+                   "stack_heads"}
 
 SURFACES = {"repro_torch": (repro_torch, TORCH_ALL),
             "repro_torch.core": (repro_torch.core, TORCH_CORE_ALL),
@@ -127,3 +147,25 @@ def test_torch_core_names_are_the_implementations():
     assert build_model is model.build_model
     assert update_centers is model.update_centers
     assert repro_torch.GEEK is GEEK and repro_torch.predict is model.predict
+
+
+def test_torch_serve_holds_every_name_of_repro_serve():
+    """Every name of ``repro.serve.__all__`` is exported, each the port's
+    own module's object; beyond them only the stacked-layer KV names."""
+    ours, theirs = set(repro_torch.serve.__all__), set(repro.serve.__all__)
+    assert theirs <= ours
+    assert ours - theirs == SERVE_PORT_ONLY
+    from repro_torch.serve import autopilot, dispatch, engine, frontend
+    from repro_torch.serve import registry
+    assert repro_torch.serve.ClusterServer is engine.ClusterServer
+    assert repro_torch.serve.WorkerPool is dispatch.WorkerPool
+    assert repro_torch.serve.ClusterFrontend is frontend.ClusterFrontend
+    assert repro_torch.serve.RefitAutopilot is autopilot.RefitAutopilot
+    assert repro_torch.serve.ModelRegistry is registry.ModelRegistry
+
+
+def test_torch_top_level_seeders_are_the_facades():
+    from repro_torch.core import api
+    assert repro_torch.KMeansPPSeeder is api.KMeansPPSeeder
+    assert repro_torch.ScalableKMeansPPSeeder is api.ScalableKMeansPPSeeder
+    assert repro_torch.core.KMeansPPSeeder is api.KMeansPPSeeder

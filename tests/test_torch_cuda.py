@@ -941,3 +941,77 @@ def test_streamed_fit_on_card_equals_incore(cuda_device, kind):
     assert torch.equal(smodel.centers, model.centers)
     lab, _ = est.predict(data(*parts), batch=777, probes=1)
     assert torch.equal(lab, est.predict(data(*parts), probes=1)[0].cpu())
+
+
+def _served(server, x, sizes):
+    """Submit ``sizes`` requests of consecutive rows; (labels, dists)."""
+    futs, off = [], 0
+    for n in sizes:
+        futs.append(server.submit(x[off:off + n]))
+        off += n
+    got = [f.result(timeout=120) for f in futs]
+    return (np.concatenate([g.labels for g in got]),
+            np.concatenate([g.dists for g in got]), off)
+
+
+@pytest.mark.parametrize("probes", [None, 1])
+def test_cluster_server_on_card_equals_predict(cuda_device, probes,
+                                               monkeypatch):
+    """A short exact (and probed) ClusterServer run on the card: labels
+    equal predict on the same rows in one call, distances within 1e-6
+    relative, the L2 kernel launched by the server; with no card a server
+    asked for no device raises instead of serving on the CPU."""
+    from repro_torch.serve import ClusterServer
+    rng = np.random.default_rng(0)
+    c = rng.standard_normal((24, 32))
+    x = (c[rng.integers(0, 24, 6000)]
+         + 0.1 * rng.standard_normal((6000, 32))).astype(np.float32)
+    model = rt.GEEK(rt.GeekConfig(k_max=128, pair_cap=1 << 16)).fit(
+        rt.DenseData(x), 0)
+    sizes = (1, 7, 300, 512, 33, 1000, 64, 2)
+    with ClusterServer(model, probes=probes, max_batch=1024,
+                       min_bucket=16) as server:
+        assert server.device.type == "cuda"
+        server.warmup(x[:16])
+        before = tda.distance_argmin_l2.launches
+        labels, dists, n = _served(server, x, sizes)
+        launched = tda.distance_argmin_l2.launches - before
+        st = server.stats()
+    want_l, want_d = rt.predict(model, x[:n], probes=probes)
+    np.testing.assert_array_equal(labels, want_l.cpu().numpy())
+    np.testing.assert_allclose(dists, want_d.cpu().numpy(), rtol=1e-6,
+                               atol=0)
+    assert st["failed"] == 0
+    if probes is None:
+        assert launched >= st["batches"] >= 1
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ClusterServer(model)
+
+
+def test_baselines_on_card_launch_the_kernels(cuda_device):
+    """seed_then_assign and Lloyd launch the L2 kernel, k-modes the
+    equality kernel; k-modes equals its plain path bit for bit."""
+    from repro_torch.core import assign as tassign
+    from repro_torch.core import baselines as tb
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((5000, 16)).astype(np.float32)
+                         ).to(cuda_device)
+    before = tda.distance_argmin_l2.launches
+    res = tb.seed_then_assign(x, 32, 0)
+    tb.lloyd(x, 32, 0, iters=3)
+    assert tda.distance_argmin_l2.launches - before == 1 + 4
+    lab_p, d2_p = tassign.assign_l2(x, res.centers, res.center_valid)
+    assert_labels_match(x.cpu().numpy(), res.centers.cpu().numpy(),
+                        np.ones(32, bool), lab_p.cpu().numpy(),
+                        res.labels.cpu().numpy(), "seed_then_assign on card")
+    codes = torch.from_numpy(rng.integers(0, 5, (5000, 9)).astype(np.int32)
+                             ).to(cuda_device)
+    before = tdh.distance_argmin_hamming.launches
+    got = tb.kmodes(codes, 16, 3, iters=4)
+    assert tdh.distance_argmin_hamming.launches - before == 5
+    idx = tb.random_indices(5000, 16, torch.Generator(
+        device=cuda_device).manual_seed(3))
+    plain = tb._kmodes_iterate(codes.cpu(), codes[idx].cpu(), 4)
+    for name in ("labels", "centers", "center_valid", "dists"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(plain, name))
