@@ -62,6 +62,16 @@ rows and phase 7's codes (``seed_then_assign`` by k-means++, k-means‖ and
 random, Lloyd, sampled k-means, k-modes), each through the kernels and
 through the plain path on the card from the same generator state.
 
+Then the rest of the LM substrate (phase 16): Jamba-v0.1 at full width
+cut to one period of its 1:7 interleave (8 of 32 layers: Mamba mixers,
+attention at layer 4, MoE at the odd layers; 13.3B parameters, bf16)
+through ``clustered_decode`` with phase 11's harness, its prefill held to
+the plain attention and its graph-replayed clustered run to the eager
+one, with the MoE layers' drops and each stage's time; RWKV6-1.6B whole,
+its chunked prefill held to the step recurrence, and its exact decode;
+and the ten architectures' smoke configs in float32 and bf16, card
+against CPU.
+
 All data is generated from a seed, not downloaded. It checks that each
 path launched its kernels, round-trips checkpoints, and reproduces the
 labels of models fitted and saved by the JAX reference
@@ -2145,6 +2155,544 @@ def base_phase(rt, dev, kernels, dense, het):
     return total, rows
 
 
+# phase 16: the rest of the LM substrate. Jamba-v0.1 at full width cut to
+# one period of its 1:7 interleave (8 of 32 layers: attention at layer 4,
+# MoE at 1, 3, 5, 7; 103 GB of bf16 weights whole, 26.6 GB cut) through
+# clustered_decode with phase 11's harness; RWKV6-1.6B whole; the ten
+# smoke configs on the card against the CPU
+HYB_ARCH, HYB_LAYERS = "jamba_v0_1_52b", 8
+RWKV_ARCH = "rwkv6_1_6b"
+# the smoke configs: prompt and decode steps of a (2, 24) input
+SMOKE_SHAPE, SMOKE_DECODE = (2, 24), 3
+@contextlib.contextmanager
+def stage_clock(dev, wraps):
+    """Wrap each (owner, name, label) of ``wraps`` with a synchronized
+    host clock while the block runs; yields {label: [seconds, calls]}
+    (nested stages inside their parents)."""
+    totals = {label: [0.0, 0] for _, _, label in wraps}
+    saved = []
+    for owner, name, label in wraps:
+        fn = getattr(owner, name)
+
+        def timed(*args, fn=fn, label=label, **kwargs):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize(dev)
+            totals[label][0] += time.perf_counter() - t0
+            totals[label][1] += 1
+            return out
+        setattr(owner, name, timed)
+        saved.append((owner, name, fn))
+    try:
+        yield totals
+    finally:
+        for owner, name, fn in reversed(saved):
+            setattr(owner, name, fn)
+
+
+def lm_stages():
+    """The LM substrate's stages for ``stage_clock``."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MoE
+    from repro_torch.models import rwkv6 as R
+    from repro_torch.models import ssm as SSM
+    return [(L, "cache_attention", "attention"),
+            (SSM, "mamba_apply", "Mamba mixer"),
+            (SSM, "_causal_conv", "- causal conv"),
+            (SSM, "_ssm_scan", "- selective scan"),
+            (MoE, "moe_apply", "MoE"),
+            (MoE, "_dispatch_local", "- dispatch (top-k, sort, scatter)"),
+            (MoE, "_combine_local", "- combine"),
+            (R, "rwkv_time_mix", "RWKV time mix"),
+            (R, "_wkv_chunked", "- WKV, chunked"),
+            (R, "_wkv_steps", "- WKV, step recurrence"),
+            (R, "rwkv_channel_mix", "RWKV channel mix")]
+
+
+def print_stages(totals, wall, per=1):
+    for label, (secs, calls) in totals.items():
+        if calls:
+            print(f"    {label:36s} {secs * 1e3 / per:10.3f} ms "
+                  f"{calls // per:5d} calls  {secs / wall:6.1%}")
+
+
+def close_model(got, want, dtype, what, truth=None):
+    """``tests/test_torch_lm.py::_close_model``: float32 within 5e-5 of
+    the largest magnitude; bfloat16 within 2^-4 of it at any element and
+    2^-7 on average, or, with ``truth`` (the float32 computation of a
+    bf16 model with a recurrent mixer), twice the reference side's own
+    error against it where that is larger. Returns (max, mean) / scale."""
+    got, want = got.double().cpu(), want.double().cpu()
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shapes {got.shape} {want.shape}")
+    err = (got - want).abs()
+    scale = float(want.abs().max())
+    if dtype == "float32":
+        top, mean = 5e-5 * scale, math.inf
+    else:
+        top, mean = 2.0**-4 * scale, 2.0**-7 * scale
+        if truth is not None:
+            own = (want - truth.double().cpu()).abs()
+            top, mean = max(top, 2 * float(own.max())), \
+                max(mean, 2 * float(own.mean()))
+    if not (float(err.max()) <= top and float(err.mean()) <= mean):
+        raise AssertionError(f"{what}: max {float(err.max())}, mean "
+                             f"{float(err.mean())} of {scale}")
+    return float(err.max()) / scale, float(err.mean()) / scale
+
+
+def smoke_run(cfg, params, inputs, device):
+    """Prefill ``inputs[:, :-SMOKE_DECODE]`` into caches sized to the
+    whole input, then one decode step a position: the float32 logits of
+    each (prefill first)."""
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    B, S = inputs.shape[:2]
+    P = S - SMOKE_DECODE
+    x = inputs.to(device)
+    caches = T.stack_cache_init(cfg, B, S, device)
+    h, _, _ = M.forward(params, cfg, x[:, :P], caches=caches, cache_len=0)
+    out = [(h[:, -1] @ params["head"]["w"]).float()]
+    for t in range(P, S):
+        out.append(M.decode_step(params, cfg, caches, t, x[:, t:t + 1])[0])
+    return out
+
+
+def smoke_configs(rt, dev, kernels):
+    """Phase 16(c): every architecture's smoke config, float32 and bf16:
+    a prefill and SMOKE_DECODE decode steps on the card against the same
+    on the CPU, from one draw of weights and inputs (stub frontends take
+    seeded embeddings). MoE routes as ``tests/_torch_parity.py``'s
+    ``MoERoutes`` holds the CPU to the reference: the CPU's recorded,
+    float32 on the card equal to them token by token, bf16 fed them with
+    the card's own differing choices counted as near ties."""
+    import dataclasses
+
+    from _torch_parity import MoERoutes
+    from repro_torch.configs import list_archs
+    from repro_torch.models import model as M
+    reset_launches(*kernels)
+    worst = {}
+    flips = 0
+    for arch in list_archs():
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(rt.get_arch(arch, smoke=True),
+                                      dtype=dtype)
+            cpu = M.init_params(cfg, 0, device="cpu")
+            rng = np.random.default_rng(0)
+            if cfg.frontend is None:
+                inputs = torch.from_numpy(rng.integers(
+                    0, cfg.vocab_size, SMOKE_SHAPE))
+            else:
+                inputs = torch.from_numpy(rng.standard_normal(
+                    SMOKE_SHAPE + (cfg.d_model,)).astype(np.float32))
+            routes = MoERoutes()
+            with routes.record():
+                want = smoke_run(cfg, cpu, inputs, "cpu")
+            inject = dtype == "bfloat16"
+            truth = [None] * len(want)
+            with routes.port(inject):
+                got = smoke_run(cfg, tree_map(lambda t: t.to(dev), cpu),
+                                inputs, dev)
+                if inject and cfg.layer_pattern in ("mamba", "rwkv", "jamba"):
+                    routes.next = 0
+                    truth = smoke_run(dataclasses.replace(cfg,
+                                                          dtype="float32"),
+                                      tree_map(lambda t: t.float(), cpu),
+                                      inputs, "cpu")
+            flips += len(routes.flips)
+            errs = [close_model(g, w, dtype, f"{arch} {dtype} step {i}", t)
+                    for i, (g, w, t) in enumerate(zip(got, want, truth))]
+            worst[(arch, dtype)] = tuple(max(e[j] for e in errs)
+                                         for j in (0, 1))
+            if not all(bool(torch.isfinite(g).all()) for g in got):
+                raise AssertionError(f"{arch} {dtype}: non-finite logits")
+    launched = {k.__name__: k.launches for k in kernels}
+    print(f"  the ten smoke configs, float32 and bfloat16, prefill of "
+          f"{SMOKE_SHAPE[1] - SMOKE_DECODE} + {SMOKE_DECODE} decode steps at "
+          f"batch {SMOKE_SHAPE[0]}, card vs CPU (largest |Δ| / scale, max "
+          f"and mean over the steps' logits):")
+    for (arch, dtype), (top, mean) in worst.items():
+        print(f"    {arch:28s} {dtype:9s} {top:.3g} / {mean:.3g}")
+    print(f"  bf16 routes the card would choose otherwise: {flips}, each a "
+          f"near tie; launches {launched}")
+    return launched
+
+
+def tree_map(fn, tree):
+    """``fn`` on every tensor of a parameter tree (dicts and lists)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def hybrid_phase(rt, dev, gen, kernels, int_rate):
+    """Phase 16(a): Jamba at full width, one period, bf16, through
+    ``clustered_decode`` exact and clustered (graph and eager); the
+    prefill against the plain attention; the MoE drops; where the
+    prefill's and a decode step's time goes; rows 1, 1a, 5, 6 and 7 at
+    head_dim 128. Returns the clustered run's launches and each kernel's
+    largest error against its plain version at this path's shapes."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MoE
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import kv_cluster as kv
+    cfg = dataclasses.replace(rt.get_arch(HYB_ARCH), num_layers=HYB_LAYERS)
+    plan = cfg.layer_plan()
+    attn = [i for i, (m, _) in enumerate(plan) if m == "attn"]
+    phase(f"16a hybrid LM path: {cfg.name} cut to {cfg.num_layers} of "
+          f"{rt.get_arch(HYB_ARCH).num_layers} layers ({''.join(m[0] for m, _ in plan)}"
+          f", MoE at {[i for i, (_, f) in enumerate(plan) if f == 'moe']}), "
+          f"d_model {cfg.d_model}, prompt {KV_PROMPT}, {KV_DECODE} decoded")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = rt.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    torch.cuda.synchronize()
+    print(f"  {M.count_params(cfg):,} parameters ({M.count_active_params(cfg):,}"
+          f" active), {cfg.dtype}, drawn in {time.perf_counter() - t0:.2f} s; "
+          f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"(weights {torch.cuda.memory_allocated() / 2**30:.2f} GiB)")
+    total = KV_PROMPT + KV_DECODE
+    tokens = torch.randint(0, cfg.vocab_size, (1, total), generator=gen,
+                           device=dev)
+    prompt = tokens[:, :KV_PROMPT]
+
+    # the prefill: flash_attention once a layer that attends; the pairs
+    # each MoE layer drops over capacity
+    dropped = []
+    real_moe = MoE.moe_apply
+
+    def counting_moe(p, x, c):
+        dropped.append(int(MoE.dropped(c, x, p)))
+        return real_moe(p, x, c)
+
+    before = fa.flash_attention.launches
+    MoE.moe_apply = counting_moe
+    try:
+        logits_k, _ = M.prefill_step(params, cfg, prompt)
+    finally:
+        MoE.moe_apply = real_moe
+    if fa.flash_attention.launches != before + len(attn):
+        raise AssertionError("the prefill did not run flash_attention once "
+                             "an attention layer")
+    pairs = KV_PROMPT * cfg.moe_top_k
+    print(f"  MoE capacity {MoE.capacity(cfg, KV_PROMPT)} rows an expert "
+          f"({cfg.moe_num_experts} experts, top {cfg.moe_top_k}): pairs "
+          f"dropped over capacity a layer {dropped} of {pairs}")
+    # the prefill through the plain attention: the last-token logits, and
+    # (what the planted faults are read on) every position's hidden state;
+    # with one attending layer of eight, a non-causal mask moves the last
+    # position little (it attends to every key either way), the earlier
+    # ones much
+    caches = T.stack_cache_init(cfg, 1, KV_PROMPT, dev)
+    hid_k, _, _ = M.forward(params, cfg, prompt, caches=caches, cache_len=0)
+    plain, hidden = {}, {}
+    for run in (torch.float32, torch.float64) + KV_FAULTS:
+        caches = T.stack_cache_init(cfg, 1, KV_PROMPT, dev)
+        over = plain_prefill_override(cfg, run) if isinstance(
+            run, torch.dtype) else plain_prefill_override(cfg, fault=run)
+        x, _, _ = M.forward(params, cfg, prompt, caches=caches, cache_len=0,
+                            attn_override=over)
+        plain[run] = (x[:, -1] @ params["head"]["w"]).float()
+        hidden[run] = x.float()
+    logits_p = plain[torch.float32]
+
+    def rel_to(got, want):
+        return float((got.float() - want).norm() / want.norm())
+
+    rel = rel_to(logits_k, logits_p)
+    rel64 = rel_to(logits_k, plain[torch.float64])
+    rel_h = rel_to(hid_k, hidden[torch.float32])
+    faults = {f: rel_to(hidden[f], hidden[torch.float32]) for f in KV_FAULTS}
+    print(f"  every position's hidden state, flash_attention vs plain: "
+          f"relative L2 {rel_h:.3g}; the planted faults "
+          f"{', '.join(f'{f} {e:.3g}' for f, e in faults.items())}; on the "
+          f"last-token logits "
+          f"{', '.join(f'{f} {rel_to(plain[f], logits_p):.3g}' for f in KV_FAULTS)}")
+    if not rel_h <= KV_LOGIT_RTOL:
+        raise AssertionError(f"prefill hidden states differ: relative {rel_h}")
+    print(f"  prefill logits, flash_attention vs plain attention: relative L2 "
+          f"{rel:.3g} against float32, {rel64:.3g} against float64 "
+          f"(tolerance {KV_LOGIT_RTOL}; plain float64 vs float32 "
+          f"{rel_to(plain[torch.float64], logits_p):.3g}), argmax "
+          f"equal: {bool(logits_k.argmax() == logits_p.argmax())}")
+    if not (rel <= KV_LOGIT_RTOL and rel64 <= KV_LOGIT_RTOL):
+        raise AssertionError(f"prefill logits differ: relative {rel}, {rel64}")
+    if not min(faults.values()) > KV_LOGIT_RTOL:
+        raise AssertionError(f"a planted fault passes the hidden-state check: "
+                             f"{faults}")
+    del x, logits_k, logits_p, caches, plain, hidden, hid_k
+
+    # where the prefill's and an exact decode step's time goes
+    torch.cuda.synchronize()
+    with stage_clock(dev, lm_stages()) as totals:
+        t0 = time.perf_counter()
+        M.prefill_step(params, cfg, prompt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    print(f"  prefill, stages synchronized: wall {wall * 1e3:.2f} ms")
+    print_stages(totals, wall)
+    caches = T.stack_cache_init(cfg, 1, total, dev)
+    M.forward(params, cfg, prompt, caches=caches, cache_len=0)
+    steps = 8
+    with stage_clock(dev, lm_stages()) as totals:
+        t0 = time.perf_counter()
+        for t in range(KV_PROMPT, KV_PROMPT + steps):
+            M.decode_step(params, cfg, caches, t, tokens[:, t:t + 1])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    print(f"  exact decode step, eager, stages synchronized: "
+          f"{wall * 1e3 / steps:.3f} ms a step ({steps} steps)")
+    print_stages(totals, wall, steps)
+    del caches
+
+    runs, launches = {}, {}
+    for run in ("exact", "clustered", "clustered, eager"):
+        reset_launches(*kernels)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = kv.clustered_decode(params, cfg, tokens, KV_PROMPT,
+                                  mode=run.split(",")[0],
+                                  gcfg=kv.default_kv_config(KV_KMAX),
+                                  ema=KV_EMA, refresh_every=KV_REFRESH,
+                                  device=dev, cuda_graph="eager" not in run)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[run] = {k.__name__: k.launches for k in kernels}
+        runs[run] = out
+        sec = out["seconds"]
+        st = np.array(sec["steps"]) * 1e3
+        print(f"  {run}: {wall:.2f} s; prefill {sec['prefill']:.4f} s, fits "
+              f"{sec['fits']:.3f} s, decode step mean {st.mean():.3f} ms "
+              f"(median {np.median(st):.3f}, first {st[0]:.2f}, max "
+              f"{st.max():.2f}), refresh {sec['refresh']:.3f} s; ppl "
+              f"{out['ppl']:.6f}; peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if "k_stars" in out:
+            print(f"    k* per head {out['k_stars']} (mean "
+                  f"{out['mean_k_star']:.2f}), compression "
+                  f"{out['compression']:.2f}, refreshes {out['refreshes']}, "
+                  f"overflow {max(out['overflows'])}, graph "
+                  f"{out['cuda_graph']}")
+        print(f"    launches {launches[run]}")
+    clus, eager = runs["clustered"], runs["clustered, eager"]
+    heads = len(attn) * cfg.num_kv_heads
+    if not all(math.isfinite(r["ppl"]) for r in runs.values()):
+        raise AssertionError("non-finite perplexity")
+    for name in ("clustered", "clustered, eager"):
+        out = runs[name]
+        if len(out["k_stars"]) != heads or min(out["k_stars"]) <= 0 or \
+                max(out["overflows"]) != 0:
+            raise AssertionError(f"{name}: a head has k* = 0 or overflow")
+        if out["refreshes"] != heads * ((KV_DECODE - 1) // KV_REFRESH):
+            raise AssertionError(f"{name}: refreshes {out['refreshes']}")
+    if not clus["cuda_graph"] or eager["cuda_graph"]:
+        raise AssertionError("the clustered run was not replayed from a graph")
+    if clus["ppl"] != eager["ppl"] or clus["k_stars"] != eager["k_stars"]:
+        raise AssertionError(f"graph-replayed ppl {clus['ppl']} differs from "
+                             f"the eager run's {eager['ppl']}")
+    per_run = len(attn) * KV_DECODE
+    for run, got in launches.items():
+        want_step = 0 if run == "exact" else per_run
+        if got["flash_attention"] != len(attn) or \
+                got["flash_centroid_decode"] != want_step or \
+                got["l2_absorb_heads"] != want_step:
+            raise AssertionError(f"{run}: launches {got}")
+        if run != "exact" and (got["distance_argmin_l2"] <= 0
+                               or got["minhash_segments"] <= 0):
+            raise AssertionError("the fits did not run the L2 and MinHash "
+                                 "kernels")
+    sx, sc, se = (np.array(runs[r]["seconds"]["steps"]) * 1e3
+                  for r in ("exact", "clustered", "clustered, eager"))
+    print(f"  decode step ms (median): exact {np.median(sx):.3f}, clustered "
+          f"(graph) {np.median(sc):.3f}, clustered eager {np.median(se):.3f};"
+          f" prefill {clus['seconds']['prefill']:.4f} s, fits "
+          f"{clus['seconds']['fits']:.3f} s, refresh "
+          f"{clus['seconds']['refresh']:.3f} s; graph ppl = eager ppl = "
+          f"{clus['ppl']:.6f}")
+
+    # rows 6, 1a, 1h, 7, 1 and 5 at this path's shapes (head_dim 128)
+    B, Hq, Hkv, dh = 1, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.resolved_head_dim
+    q = torch.randn((B, KV_PROMPT, Hq, dh), generator=gen,
+                    device=dev).to(torch.bfloat16).transpose(1, 2)
+    k, v = (torch.randn((B, KV_PROMPT, Hkv, dh), generator=gen, device=dev)
+            .to(torch.bfloat16).transpose(1, 2) for _ in range(2))
+    S = KV_PROMPT
+    fa_err = fa_check(fa.flash_attention(q, k, v, causal=True),
+                      ref.attention_ref(q, k, v, causal=True),
+                      f"flash_attention {(B, Hq, Hkv, S, dh)}")
+    fa_ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True), 20)
+    fa_plain_ms = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=True), 5)
+    fa_lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), 20)
+    fa_dev = device_ms(lambda: fa.flash_attention(q, k, v, causal=True), 20,
+                       "flash_attention_bf16_kernel")
+    sdpa_dev = device_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), 20, "sdpa")
+    fa_bound, fa_by = bound(2.0 * dh * S * (2 * Hq + 2 * Hkv) * B,
+                            [4.0 * B * Hq * dh * S * (S + 1) / 2
+                             / PEAK_BF16_FLOPS])
+    print(f"  flash_attention at ({B},{Hq},{Hkv},{S},{dh}) bf16 causal: max "
+          f"|Δ| vs plain {fa_err:.3g}; kernel {fa_ms:.4f} ms (device "
+          f"{fa_dev:.4f}), plain {fa_plain_ms:.4f} ms, SDPA {fa_lib_ms:.4f} "
+          f"ms (device {sdpa_dev:.4f}), bound {fa_bound:.4f} ms ({fa_by})")
+    del q, k, v
+    rows = decode_kernels(dev, cfg, clus["k_stars"][:Hkv])
+    for row in rows:
+        print(f"  at head_dim {dh}: {row['name']} {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.7f} "
+              f"({row['bound_by']}), library {row['library_ms']}")
+    caches = T.stack_cache_init(cfg, 1, KV_PROMPT, dev)
+    M.forward(params, cfg, prompt, caches=caches, cache_len=0)
+    fit_kernels(dev, caches[attn[0]]["k"][0, :KV_PROMPT, 0].float(), int_rate)
+    del caches, params
+    torch.cuda.empty_cache()
+    errs = {r["name"]: r["max_abs_err"] for r in rows}
+    errs["flash_attention"] = fa_err
+    return launches["clustered"], errs
+
+
+def rwkv_phase(rt, dev, gen):
+    """Phase 16(b): RWKV6-1.6B whole in bf16: a 2,048-token prefill (the
+    chunked WKV) against a 2,047-token prefill (the step recurrence) and
+    one decode step, in bf16 and in float32 on the same weights, then
+    ``clustered_decode(mode="exact")``."""
+    import dataclasses
+
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import kv_cluster as kv
+    cfg = rt.get_arch(RWKV_ARCH)
+    phase(f"16b attention-free LM path: {cfg.name} whole ({cfg.num_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.rwkv_heads} heads of "
+          f"{cfg.rwkv_head_dim}), prompt {KV_PROMPT}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = rt.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    torch.cuda.synchronize()
+    print(f"  {M.count_params(cfg):,} parameters ({cfg.dtype}) drawn in "
+          f"{time.perf_counter() - t0:.2f} s")
+    total = KV_PROMPT + KV_DECODE
+    tokens = torch.randint(0, cfg.vocab_size, (1, total), generator=gen,
+                           device=dev)
+    with stage_clock(dev, lm_stages()) as totals:
+        t0 = time.perf_counter()
+        chunked, _ = M.prefill_step(params, cfg, tokens[:, :KV_PROMPT])
+        torch.cuda.synchronize()
+        wall_c = time.perf_counter() - t0
+    print(f"  prefill of {KV_PROMPT} (chunked WKV), stages synchronized: "
+          f"wall {wall_c * 1e3:.2f} ms")
+    print_stages(totals, wall_c)
+    if totals["- WKV, chunked"][1] != cfg.num_layers or \
+            totals["- WKV, step recurrence"][1]:
+        raise AssertionError("the 2,048-token prefill did not take the "
+                             "chunked branch")
+    # the step branch: a prefill of KV_PROMPT - 1 positions, then one
+    # decode step; both branches also in float32 on the same weights
+    # (widened), the computation the bf16 model rounds
+    wide = dataclasses.replace(cfg, dtype="float32")
+    wide_params = tree_map(lambda t: t.float(), params)
+
+    def stepped(c, p):
+        caches = T.stack_cache_init(c, 1, KV_PROMPT, dev)
+        M.forward(p, c, tokens[:, :KV_PROMPT - 1], caches=caches,
+                  cache_len=0)
+        return M.decode_step(p, c, caches, KV_PROMPT - 1,
+                             tokens[:, KV_PROMPT - 1:KV_PROMPT])[0]
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step_bf = stepped(cfg, params)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    chunk_32, _ = M.prefill_step(wide_params, wide, tokens[:, :KV_PROMPT])
+    step_32 = stepped(wide, wide_params)
+    del wide_params
+
+    def rel(a, b):
+        d = (a.double() - b.double()).abs()
+        return float(d.max() / b.abs().max()), float(d.mean() / b.abs().max())
+
+    (top32, mean32), (top, mean) = rel(step_32, chunk_32), rel(step_bf,
+                                                               chunked)
+    own = rel(chunked, chunk_32)[0]
+    print(f"  prefill of {KV_PROMPT - 1} (step recurrence) {wall_s:.2f} s, "
+          f"then a decode step: last-token logits vs the chunked prefill's, "
+          f"|Δ| / scale: float32 max {top32:.3g}, mean {mean32:.3g} "
+          f"(tolerance 5e-5); bf16 max {top:.3g}, mean {mean:.3g} (the "
+          f"chunked bf16 run's own max |Δ| / scale against float32 "
+          f"{own:.3g}; tolerance {2.0**-4:.4g} / {2.0**-7:.4g}, or twice "
+          f"that own error); argmax equal: "
+          f"{bool(step_bf.argmax() == chunked.argmax())}")
+    close_model(step_32, chunk_32, "float32",
+                "RWKV6 float32: step branch vs chunked")
+    close_model(step_bf, chunked, cfg.dtype,
+                "RWKV6 bf16: step branch vs chunked", truth=chunk_32)
+    t0 = time.perf_counter()
+    out = kv.clustered_decode(params, cfg, tokens, KV_PROMPT, mode="exact",
+                              device=dev)
+    torch.cuda.synchronize()
+    st = np.array(out["seconds"]["steps"]) * 1e3
+    print(f"  clustered_decode(mode='exact'): {time.perf_counter() - t0:.2f} "
+          f"s; prefill {out['seconds']['prefill']:.4f} s, decode step mean "
+          f"{st.mean():.3f} ms (median {np.median(st):.3f}); ppl "
+          f"{out['ppl']:.6f}; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not math.isfinite(out["ppl"]) or out["steps"] != KV_DECODE:
+        raise AssertionError(f"RWKV6 exact decode: {out['ppl']}")
+    try:
+        kv.clustered_decode(params, cfg, tokens, KV_PROMPT, device=dev)
+    except ValueError as e:
+        print(f"  clustered mode refused, as it must be: {e}")
+    else:
+        raise AssertionError("clustered_decode clustered an attention-free "
+                             "model")
+    del params
+    torch.cuda.empty_cache()
+
+
+def lm_phase(rt, dev, all_kernels, int_rate):
+    """Phase 16: the hybrid path (a), RWKV6 (b), the smoke configs (c).
+    Returns the launches of (a)'s clustered run and (c), by kernel, and
+    the kernels' largest errors against their plain versions at (a)'s
+    shapes, by name."""
+    from repro_torch.kernels import distance_argmin as da
+    from repro_torch.kernels import flash_attention as fa
+    kernels = all_kernels + (fa.flash_attention, fa.flash_centroid_attention,
+                             fa.flash_centroid_decode,
+                             da.distance_argmin_l2_heads, da.l2_absorb_heads)
+    t0 = time.perf_counter()
+    # a generator of its own: the phase's tokens do not hang on what the
+    # earlier phases drew
+    gen = torch.Generator(device=dev).manual_seed(0)
+    hyb, errs = hybrid_phase(rt, dev, gen, kernels, int_rate)
+    rwkv_phase(rt, dev, gen)
+    phase("16c the ten smoke configs: card vs CPU")
+    small = smoke_configs(rt, dev, kernels)
+    total = {k: hyb[k] + small[k] for k in hyb}
+    # the (B, S) centroid kernel's row counts its own launches: the decode
+    # routine ticks flash_centroid_attention's count too
+    total["flash_centroid_attention"] -= total["flash_centroid_decode"]
+    print(f"  phase 16: {time.perf_counter() - t0:.1f} s; launches on its "
+          f"paths {total}")
+    return total, errs
+
+
 T0 = time.perf_counter()
 
 
@@ -2154,6 +2702,7 @@ def main():
               file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    sys.path.insert(0, os.path.join(ROOT, "tests"))     # _torch_parity
     import repro_torch as rt
     from repro_torch.data.synthetic import sift_like
     from repro_torch.kernels import build
@@ -2763,6 +3312,11 @@ def run_paths(rt, dev, gen, card, int_rate, popc_rate, data, x_fit, x_new,
         new_paths[k] += served[k] + based[k]
     print(f"  launches on the new paths (phases 12-15) {new_paths}, added "
           "to the kernels line")
+    del dense, het, url
+    torch.cuda.empty_cache()
+    lm_launch, lm_errs = lm_phase(rt, dev, all_kernels, int_rate)
+    for k in new_paths:
+        new_paths[k] += lm_launch[k]
     kernels = [
         {"name": "distance_argmin_l2", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/distance_argmin.cu",
@@ -2802,7 +3356,12 @@ def run_paths(rt, dev, gen, card, int_rate, popc_rate, data, x_fit, x_new,
          "library_ms": None},
     ]
     for row in flash_rows:
-        row["launches"] = kv_launch[row["name"]]
+        row["launches"] = kv_launch[row["name"]] + lm_launch[row["name"]]
+    for row in decode_rows:
+        row["launches"] += lm_launch[row["name"]]
+    for row in flash_rows + decode_rows:
+        row["max_abs_err"] = max(row["max_abs_err"],
+                                 lm_errs.get(row["name"], 0.0))
     print(f"smoke wall {time.perf_counter() - T0:.1f} s")
     kernels += flash_rows + decode_rows
     print(card)

@@ -1,7 +1,9 @@
-"""The LM substrate of the port: dense attention + MLP stacks."""
+"""The LM substrate of the port: attention, Mamba and RWKV6 mixers, MLP
+and MoE feed-forwards, the ten architectures of ``repro_torch.configs``."""
 from repro_torch.models.config import ArchConfig  # noqa: F401
 from repro_torch.models.convert import params_from_numpy  # noqa: F401
 from repro_torch.models.model import (  # noqa: F401
+    count_active_params,
     count_params,
     decode_step,
     forward,

@@ -3,9 +3,7 @@
 ``repro``).
 
 One frozen dataclass drives model construction. Exact dimension sets live
-in ``repro_torch/configs/<id>.py``. The port builds the dense attention +
-MLP stacks only; the MoE, Mamba and RWKV fields are kept so configs read
-alike in both packages, and the blocks that need them raise.
+in ``repro_torch/configs/<id>.py``.
 """
 from __future__ import annotations
 

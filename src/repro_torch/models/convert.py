@@ -15,7 +15,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.models import transformer as T
 from repro_torch.models.config import ArchConfig
 from repro_torch.utils.device import resolve_device
 
@@ -40,14 +39,13 @@ def params_from_numpy(tree, cfg: ArchConfig, device=None):
     """The reference's parameter pytree (numpy leaves) as the port's
     parameters on ``device`` (``None`` means ``cuda``)."""
     dev = resolve_device(device)
-    plan = T.layer_plan(cfg)
     period = cfg.period()
     if len(tree["layers"]) != period:
         raise ValueError(f"expected {period} period positions, got "
                          f"{len(tree['layers'])}")
     layers = [_tree(lambda a, i=i: tensor_from_numpy(
         np.asarray(a)[i // period], dev), tree["layers"][i % period])
-        for i in range(len(plan))]
+        for i in range(cfg.num_layers)]
     out = {"layers": layers}
     for name, sub in tree.items():
         if name != "layers":

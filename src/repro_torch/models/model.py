@@ -4,8 +4,9 @@ of ``repro.models.model``).
 Parameters are a dictionary: ``layers`` (one dictionary per layer),
 ``final_norm``, ``head`` and, for token inputs, ``embed``. Weights from
 the reference carry across with ``models.convert.params_from_numpy``.
-The training loss (``chunked_cross_entropy``) waits for the training
-slice (ROADMAP.md).
+Caches are one dictionary per layer (attention K/V, Mamba or RWKV
+state), updated in place. The training loss (``chunked_cross_entropy``)
+waits for the training slice (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -48,7 +49,8 @@ def forward(params, cfg: ArchConfig, inputs, *, positions=None, caches=None,
     """inputs: (B, S) int tokens, or (B, S, d) embeddings for stub
     frontends. Returns (hidden (B, S, d), new_caches, aux). With
     ``caches`` (``T.stack_cache_init``) the fresh K/V are written at rows
-    ``cache_len`` (an int) onwards, in place. ``attn_override`` is
+    ``cache_len`` (an int) onwards and the recurrent states advanced, in
+    place. ``attn_override`` is
     threaded to ``T.stack_apply``. float32 products stay full float32 on
     the card (no TF32)."""
     full_precision_matmul()
@@ -105,6 +107,20 @@ def count_params(cfg: ArchConfig) -> int:
     """Total parameter count (shapes only, on the ``meta`` device)."""
     return sum(math.prod(t.shape)
                for t in leaves(_init(cfg, None, torch.device("meta"))))
+
+
+def count_active_params(cfg: ArchConfig) -> int:
+    """Parameters active per token: the routed experts of each MoE layer
+    count ``top_k / num_experts`` of their size (shared experts count
+    whole). Shapes only, on the ``meta`` device."""
+    total = count_params(cfg)
+    if cfg.moe_num_experts == 0:
+        return total
+    params = _init(cfg, None, torch.device("meta"))
+    expert = sum(math.prod(layer["moe"][name].shape)
+                 for layer in params["layers"] if "moe" in layer
+                 for name in ("gate", "up", "down"))
+    return total - expert + int(expert * cfg.moe_top_k / cfg.moe_num_experts)
 
 
 def leaves(tree):

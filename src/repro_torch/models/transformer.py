@@ -1,12 +1,15 @@
 """Block assembly and the layer stack (the counterpart of
 ``repro.models.transformer``).
 
-A *block* is (norm -> attention) + (norm -> MLP) with residuals. The
-reference stacks parameters over periods with a leading ``nper`` axis and
-scans; the port keeps one parameter dictionary per layer and loops over
-the layers in Python, handing an attention override the global layer
-index as the reference's per-layer loop does. Only dense attention + MLP
-blocks are ported: the MoE, Mamba and RWKV blocks raise.
+A *block* is (norm -> mix) + (norm -> ffn) with residuals, where
+  mix in {attn, mamba, rwkv time mix}   ffn in {mlp, moe, rwkv channel mix}.
+
+The reference stacks parameters over the periods of ``cfg.layer_plan()``
+(1 for uniform stacks, 8 for Jamba's 1:7 interleave) and scans; the port
+keeps one parameter dictionary per layer and loops over the layers in
+Python, handing an attention override the global layer index as the
+reference's per-layer loop does. Caches (attention K/V, Mamba and RWKV
+states) are one dictionary per layer, updated in place.
 """
 from __future__ import annotations
 
@@ -15,62 +18,80 @@ import functools
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
+from repro_torch.models import rwkv6 as R
+from repro_torch.models import ssm as S
 from repro_torch.models.config import ArchConfig
-
-
-def _check_block(mix: str, ffn: str) -> None:
-    if mix != "attn" or ffn != "mlp":
-        raise NotImplementedError(
-            f"{mix}/{ffn} blocks are not ported yet (ROADMAP.md, Queue 1 "
-            "item 15: MoE, Mamba and RWKV blocks)")
-
-
-def layer_plan(cfg: ArchConfig) -> list[tuple[str, str]]:
-    """``cfg.layer_plan()``, refused unless every block is attention +
-    MLP (the blocks the port builds)."""
-    plan = cfg.layer_plan()
-    for mix, ffn in plan:
-        _check_block(mix, ffn)
-    return plan
-
 
 # ---------------------------------------------------------------------------
 # Single block
 # ---------------------------------------------------------------------------
 
+
 def block_init(gen, cfg: ArchConfig, mix: str, ffn: str, device="cpu"):
-    _check_block(mix, ffn)
-    return {"norm1": L.norm_init(cfg, device=device),
-            "attn": L.attn_init(gen, cfg, device),
-            "norm2": L.norm_init(cfg, device=device),
-            "mlp": L.mlp_init(gen, cfg, device)}
+    p = {"norm1": L.norm_init(cfg, device=device)}
+    if mix == "attn":
+        p["attn"] = L.attn_init(gen, cfg, device)
+    elif mix == "mamba":
+        p["mamba"] = S.mamba_init(gen, cfg, device)
+    elif mix == "rwkv":
+        p["rwkv"] = R.rwkv_init(gen, cfg, device)
+    else:
+        raise ValueError(mix)
+    p["norm2"] = L.norm_init(cfg, device=device)
+    if ffn == "mlp":
+        p["mlp"] = L.mlp_init(gen, cfg, device)
+    elif ffn == "moe":
+        p["moe"] = M.moe_init(gen, cfg, device)
+    elif ffn != "rwkv_ffn":   # the channel mix's params live in p["rwkv"]
+        raise ValueError(ffn)
+    return p
 
 
 def block_cache_init(cfg: ArchConfig, mix: str, batch: int, max_len: int,
                      device="cpu"):
-    _check_block(mix, "mlp")
-    return L.attn_cache_init(cfg, batch, max_len, device)
+    if mix == "attn":
+        return L.attn_cache_init(cfg, batch, max_len, device)
+    if mix == "mamba":
+        return S.mamba_cache_init(cfg, batch, device)
+    if mix == "rwkv":
+        return R.rwkv_cache_init(cfg, batch, device)
+    raise ValueError(mix)
 
 
 def block_apply(p, x, cfg: ArchConfig, mix: str, ffn: str, *, positions,
                 cache=None, cache_len=None, attn_override=None):
     """Returns (x, new_cache, aux).
 
-    ``attn_override``, when given, replaces ``L.attn_apply``: called as
-    ``override(p_attn, h, positions=, cache=, cache_len=) -> (y,
-    new_cache)`` (the clustered-KV decode path).
+    ``attn_override``, when given, replaces ``L.attn_apply`` for attention
+    mixes: called as ``override(p_attn, h, positions=, cache=,
+    cache_len=) -> (y, new_cache)`` (the clustered-KV decode path).
     """
-    _check_block(mix, ffn)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = L.rms_norm(x, p["norm1"]["scale"], cfg.norm_eps)
-    attn_fn = attn_override if attn_override is not None else \
-        functools.partial(L.attn_apply, cfg=cfg)
-    y, new_cache = attn_fn(p["attn"], h, positions=positions, cache=cache,
-                           cache_len=cache_len)
+    if mix == "attn":
+        attn_fn = attn_override if attn_override is not None else \
+            functools.partial(L.attn_apply, cfg=cfg)
+        y, new_cache = attn_fn(p["attn"], h, positions=positions, cache=cache,
+                               cache_len=cache_len)
+    elif mix == "mamba":
+        y, new_cache = S.mamba_apply(p["mamba"], h, cfg, cache=cache)
+    elif mix == "rwkv":
+        y, new_cache = R.rwkv_time_mix(p["rwkv"], h, cfg, cache=cache)
+    else:
+        raise ValueError(mix)
     x = x + y
+
     h = L.rms_norm(x, p["norm2"]["scale"], cfg.norm_eps)
-    x = x + L.mlp_apply(p["mlp"], h)
-    return x, new_cache, aux
+    if ffn == "mlp":
+        y = L.mlp_apply(p["mlp"], h)
+    elif ffn == "moe":
+        y, aux = M.moe_apply(p["moe"], h, cfg)
+    elif ffn == "rwkv_ffn":
+        y, new_cache = R.rwkv_channel_mix(p["rwkv"], h, cache=new_cache)
+    else:
+        raise ValueError(ffn)
+    return x + y, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -80,14 +101,16 @@ def block_apply(p, x, cfg: ArchConfig, mix: str, ffn: str, *, positions,
 def stack_init(gen, cfg: ArchConfig, device="cpu") -> list[dict]:
     """One parameter dictionary per layer, in layer order."""
     return [block_init(gen, cfg, mix, ffn, device)
-            for mix, ffn in layer_plan(cfg)]
+            for mix, ffn in cfg.layer_plan()]
 
 
 def stack_cache_init(cfg: ArchConfig, batch: int, max_len: int,
                      device="cpu") -> list[dict]:
-    """One ``{"k", "v"}`` cache of (batch, max_len, Hkv, hd) per layer."""
+    """One cache per layer: ``{"k", "v"}`` of (batch, max_len, Hkv, hd)
+    for attention, ``{"h", "conv"}`` for Mamba, ``{"s", "x_tm", "x_cm"}``
+    for RWKV."""
     return [block_cache_init(cfg, mix, batch, max_len, device)
-            for mix, _ in layer_plan(cfg)]
+            for mix, _ in cfg.layer_plan()]
 
 
 def stack_apply(layers, x, cfg: ArchConfig, *, positions, caches=None,
@@ -99,12 +122,11 @@ def stack_apply(layers, x, cfg: ArchConfig, *, positions, caches=None,
     as ``override(global_layer, p_attn, h, positions=, cache=,
     cache_len=) -> (y, new_cache)``.
     """
-    plan = layer_plan(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches = [] if caches is not None else None
-    for layer, (mix, ffn) in enumerate(plan):
+    for layer, (mix, ffn) in enumerate(cfg.layer_plan()):
         override = None
-        if attn_override is not None:
+        if attn_override is not None and mix == "attn":
             override = functools.partial(attn_override, layer)
         x, nc, a = block_apply(
             layers[layer], x, cfg, mix, ffn, positions=positions,

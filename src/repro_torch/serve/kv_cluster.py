@@ -697,7 +697,9 @@ def clustered_decode(params, cfg, tokens, prompt_len: int, *,
     Prefills ``tokens[:, :prompt_len]`` with exact attention (the flash
     kernel on the card), fits one ``LayerKVCluster`` per attention layer
     (every kv head on its own) on the prefill cache, then decodes the
-    remaining positions one step at a time (``make_layer_step``):
+    remaining positions one step at a time (``make_layer_step``; the
+    Mamba and RWKV layers of a hybrid plan advance their states in the
+    same step, in place):
     clustered attention over each layer's state, then routing + EMA of
     the step's rows, a re-fit on the full cache every ``refresh_every``
     steps. On the card the clustered step is captured once as a CUDA graph
@@ -714,6 +716,8 @@ def clustered_decode(params, cfg, tokens, prompt_len: int, *,
         are scored.
     prompt_len : int, 0 < prompt_len < total.
     mode : {"clustered", "exact"}
+        "clustered" needs an attention layer (RWKV6 has none: it raises
+        ``ValueError`` before the prefill).
     gcfg, ema, refresh_every, probes, probe_min_k, use_flash
         Clustering knobs (``LayerKVCluster``); ignored for "exact". A
         probed route reads the device on the host, so the step runs
@@ -760,8 +764,11 @@ def clustered_decode(params, cfg, tokens, prompt_len: int, *,
     k_max = (default_kv_config() if gcfg is None else gcfg).k_max
     graph = (dev.type == "cuda" and cuda_graph
              and (probes is None or k_max < probe_min_k))
-    attn_layers = [i for i, (mix, _) in enumerate(T.layer_plan(cfg))
+    attn_layers = [i for i, (mix, _) in enumerate(cfg.layer_plan())
                    if mix == "attn"]
+    if mode == "clustered" and not attn_layers:
+        raise ValueError(f"{cfg.name} has no attention layer whose KV cache "
+                         "could be clustered; use mode='exact'")
     seconds = {"prefill": 0.0, "fits": 0.0, "steps": [], "refresh": 0.0}
 
     t0 = _sync(dev)

@@ -6,6 +6,7 @@ int64 carrier.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any
 
@@ -148,3 +149,122 @@ def injected_code_bucketer(draws: dict, device="cpu") -> InjectedBucketer:
     port's int64 carrier on ``device``."""
     return InjectedBucketer(**{k: carrier(v).to(device)
                                for k, v in draws.items()})
+
+
+#: how far apart, in the port's router probabilities, an expert the port
+#: would pick and the one the reference picked may lie where the two
+#: differ: a bf16 model's router input differs from the reference's by an
+#: ulp (2^-8 relative) at some elements, which moves a probability by up
+#: to ~1e-2 (measured: 3.5e-4 to 9.7e-3 on the smoke configs); 2^-5 keeps
+#: that margin thrice over and is far below the spread of a real choice
+ROUTE_NEAR_TIE = 2.0 ** -5
+
+
+class MoERoutes:
+    """The reference's MoE expert choices, recorded, and the port held to
+    or fed them.
+
+    ``reference(fn)`` wraps a jitted reference function: while it runs
+    (and is traced), ``repro.models.moe._dispatch_local`` also hands its
+    top-k expert ids (``lax.top_k``: the lower id first on ties) to an
+    ordered debug callback, so each MoE call's (T, k) ids land in
+    ``self.recorded`` in call order.
+
+    ``record()`` is a context in which the port's own choices are
+    recorded instead (``chip_smoke.py`` holds the card to the CPU so).
+
+    ``port()`` is a context in which the port's ``moe.top_k`` takes the
+    recorded ids, one MoE call at a time, in order (setting ``next`` back
+    replays them into a second port run); on leaving it every recorded
+    call must have been taken, and the record is cleared. ``inject=False``: the
+    port's own choice must equal the recorded one (as a set a token) and
+    is used. ``inject=True``: the recorded ids are used (the gates are the
+    port's own probabilities at them), and a token whose own choice
+    differs counts as a near tie only if the port's k-th probability and
+    its probability of the recorded expert lie within ``ROUTE_NEAR_TIE``
+    (``self.flips`` lists those gaps). Expert choice is discrete, like a
+    draw: a one-ulp difference upstream may flip it, and a flipped token
+    then leaves every tolerance, so bf16 models are compared on the
+    reference's routes and the flips are counted and bounded.
+    """
+
+    def __init__(self):
+        self.recorded: list[np.ndarray] = []
+        self.next = 0          # the recorded call the port's next MoE takes
+        self.flips: list[float] = []
+
+    def reference(self, fn):
+        import jax
+        from repro.models import moe as jmoe
+
+        def record(ids):
+            self.recorded.append(np.array(ids))
+
+        def dispatch(xg, probs, k, e, cap):
+            jax.debug.callback(record, jax.lax.top_k(probs, k)[1],
+                               ordered=True)
+            return original(xg, probs, k, e, cap)
+
+        original = jmoe._dispatch_local
+
+        def run(*args):
+            jmoe._dispatch_local = dispatch
+            try:
+                out = fn(*args)
+                jax.effects_barrier()
+            finally:
+                jmoe._dispatch_local = original
+            return out
+        return run
+
+    @contextlib.contextmanager
+    def record(self):
+        from repro_torch.models import moe as tmoe
+        own_top_k = tmoe.top_k
+
+        def top_k(probs, k):
+            vals, ids = own_top_k(probs, k)
+            self.recorded.append(ids.cpu().numpy())
+            return vals, ids
+
+        tmoe.top_k = top_k
+        try:
+            yield self
+        finally:
+            tmoe.top_k = own_top_k
+
+    @contextlib.contextmanager
+    def port(self, inject: bool):
+        from repro_torch.models import moe as tmoe
+        own_top_k = tmoe.top_k
+
+        def top_k(probs, k):
+            assert self.next < len(self.recorded), \
+                "the port ran an MoE call that was not recorded"
+            want = torch.from_numpy(np.asarray(self.recorded[self.next])
+                                    .reshape(-1, k))
+            self.next += 1
+            want = want.to(device=probs.device, dtype=torch.int64)
+            vals, ids = own_top_k(probs, k)
+            differ = (torch.sort(ids, -1).values
+                      != torch.sort(want, -1).values).any(-1)
+            if not inject:
+                assert not bool(differ.any()), \
+                    f"routes differ at tokens {differ.nonzero().tolist()}"
+                return vals, ids
+            for r in differ.nonzero().flatten().tolist():
+                gap = float(vals[r, -1] - probs[r].gather(0, want[r]).min())
+                assert gap <= ROUTE_NEAR_TIE, f"token {r}: a route gap {gap}"
+                self.flips.append(gap)
+            return probs.gather(-1, want), want
+
+        tmoe.top_k = top_k
+        try:
+            yield self
+        finally:
+            tmoe.top_k = own_top_k
+        assert self.next == len(self.recorded), \
+            f"{len(self.recorded) - self.next} recorded MoE calls the port " \
+            "did not make"
+        self.recorded.clear()
+        self.next = 0

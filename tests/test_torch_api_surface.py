@@ -39,6 +39,8 @@ TORCH_ALL = [
     "ScalableKMeansPPSeeder",
     "SparseData",
     "clustered_decode",
+    "count_active_params",
+    "count_params",
     "get_arch",
     "init_params",
     "make_fit_dense",

@@ -462,3 +462,71 @@ def test_clustered_decode_own_draws_and_validation():
                                   gcfg=tkv.default_kv_config(8),
                                   refresh_every=6)
     assert probed["ppl"] == out["ppl"] and not probed["cuda_graph"]
+
+
+@functools.lru_cache(maxsize=None)
+def _hybrid(arch):
+    """A float32 smoke model of ``arch`` (reference params, the port's
+    carried) and 60 tokens."""
+    cfg = dataclasses.replace(j_get_arch(arch, smoke=True), dtype="float32",
+                              remat=False)
+    jp = jax.jit(JM.init_params, static_argnums=0)(cfg, jax.random.PRNGKey(0))
+    tokens = np.array(jax.random.randint(jax.random.PRNGKey(1), (1, 60), 0,
+                                           cfg.vocab_size))
+    return cfg, jp, params_from_numpy(jax.tree.map(np.asarray, jp), cfg,
+                                      device="cpu"), tokens
+
+
+def test_clustered_decode_on_a_hybrid_plan_matches_reference(monkeypatch):
+    """Jamba's smoke period (Mamba layers, MoE every 2nd layer, attention
+    at layer 4 only): one ``LayerKVCluster``, the Mamba and MoE layers'
+    states riding in the same step. Both modes, the port fed the
+    reference's draws: k* equal per head, refreshes equal, perplexities
+    within 1e-4."""
+    cfg, jp, tp, tokens = _hybrid("jamba_v0_1_52b")
+    assert [i for i, (m, _) in enumerate(cfg.layer_plan())
+            if m == "attn"] == [4]
+    jheads = []
+    init = jkv.OnlineKVCluster.__init__
+
+    def recording_init(self, *a, **kw):
+        init(self, *a, **kw)
+        jheads.append(self)
+
+    monkeypatch.setattr(jkv.OnlineKVCluster, "__init__", recording_init)
+    gcfg, key = jkv.default_kv_config(16), jax.random.PRNGKey(2)
+
+    def draws(layer, h, fits):
+        head_key = jax.random.fold_in(key, layer * 1024 + h)
+        return _injected(head_key, cfg.resolved_head_dim, gcfg)(fits)
+
+    for mode in ("exact", "clustered"):
+        want = jkv.clustered_decode(jp, cfg, jnp.asarray(tokens), 48,
+                                    mode=mode, gcfg=gcfg, key=key,
+                                    refresh_every=6)
+        got = tkv.clustered_decode(tp, cfg, tokens, 48, mode=mode,
+                                   gcfg=tkv.default_kv_config(16),
+                                   draws=draws, device="cpu",
+                                   refresh_every=6)
+        assert got["steps"] == want["steps"] == 12
+        assert got["ppl"] == pytest.approx(want["ppl"], rel=1e-4), mode
+    assert got["k_stars"] == [cl.k_star for cl in jheads]
+    assert len(got["k_stars"]) == cfg.num_kv_heads
+    assert 0 < min(got["k_stars"]) and max(got["overflows"]) == 0
+    assert got["refreshes"] == want["refreshes"] == cfg.num_kv_heads
+    assert got["mean_k_star"] == want["mean_k_star"]
+
+
+def test_clustered_decode_without_attention_layers():
+    """RWKV6 has no attention layer: the exact mode runs (its state in
+    the caches) and matches the reference; the clustered mode raises
+    before the prefill (where the reference divides by zero heads)."""
+    cfg, jp, tp, tokens = _hybrid("rwkv6_1_6b")
+    want = jkv.clustered_decode(jp, cfg, jnp.asarray(tokens), 48,
+                                mode="exact")
+    got = tkv.clustered_decode(tp, cfg, tokens, 48, mode="exact",
+                               device="cpu")
+    assert got["steps"] == 12 and "k_stars" not in got
+    assert got["ppl"] == pytest.approx(want["ppl"], rel=1e-4)
+    with pytest.raises(ValueError, match="no attention layer"):
+        tkv.clustered_decode(tp, cfg, tokens, 48, device="cpu")

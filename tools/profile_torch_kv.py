@@ -2,10 +2,12 @@
 """Where the time of the port's KV-clustered decode goes.
 
     PYTHONPATH=src python tools/profile_torch_kv.py [--arch qwen3_0_6b]
-        [--prompt 2048] [--decode 64] [--k-max 64] [--refresh-every 32]
-        [--device cuda]
+        [--layers N] [--prompt 2048] [--decode 64] [--k-max 64]
+        [--refresh-every 32] [--device cuda]
 
-Runs ``chip_smoke.py``'s phase-11 path: the architecture at full width
+Runs ``chip_smoke.py``'s phase-11 path (``--arch jamba_v0_1_52b --layers
+8``: phase 16(a)'s, Jamba cut to one period of its interleave): the
+architecture at full width (its first ``--layers`` layers, if given)
 with weights drawn from seed 0, one sequence of random tokens, the
 prefill, one ``LayerKVCluster`` per layer (a fit per kv head), the decode
 steps (clustered attention on the decode routine, then one launch of the
@@ -21,6 +23,8 @@ four runs:
 3. instrumented, eager (a graph replay calls no Python): each stage
    wrapped by a synchronized host clock, nested stages inside their
    parents: the prefill's attention (the flash-attention kernel), the
+   Mamba mixer (its selective scan), the MoE layer (its dispatch and
+   combine) and the RWKV6 mixes where the plan has them, the
    fits, and per decode step the model step, the centroid attention (the
    decode routine), and each layer's ``absorb`` (the absorb kernel; with
    ``--swap-kernels``' unfused absorb, the route and the EMA apart);
@@ -44,6 +48,7 @@ CPU's and say nothing of the card.
 """
 import argparse
 import collections
+import dataclasses
 import os
 import sys
 import time
@@ -56,6 +61,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
 import repro_torch as rt  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models import moe as MoE  # noqa: E402
+from repro_torch.models import rwkv6 as R  # noqa: E402
+from repro_torch.models import ssm as SSM  # noqa: E402
 from repro_torch.serve import kv_cluster as kv  # noqa: E402
 
 
@@ -86,6 +94,13 @@ def timed_stages(dev):
         patched.append((owner, name, fn))
 
     wrap(L, "cache_attention", "cache attention (prefill: flash_attention)")
+    wrap(SSM, "mamba_apply", "Mamba mixer")
+    wrap(SSM, "_ssm_scan", "- selective scan")
+    wrap(MoE, "moe_apply", "MoE feed-forward")
+    wrap(MoE, "_dispatch_local", "- MoE dispatch (top-k, sort, scatter)")
+    wrap(MoE, "_combine_local", "- MoE combine")
+    wrap(R, "rwkv_time_mix", "RWKV6 time mix")
+    wrap(R, "rwkv_channel_mix", "RWKV6 channel mix")
     wrap(kv.LayerKVCluster, "_fit_row",
          "GEEK fits (start and refresh), per head")
     wrap(M, "decode_step", "model step (with clustered attention, absorb)")
@@ -146,6 +161,8 @@ def swap_kernels(which):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3_0_6b")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="keep the first N layers (Jamba: 8, one period)")
     ap.add_argument("--prompt", type=int, default=None)
     ap.add_argument("--decode", type=int, default=None)
     ap.add_argument("--k-max", type=int, default=None)
@@ -163,6 +180,8 @@ def main():
     decode = args.decode or (64 if full else 40)
     k_max = args.k_max or (64 if full else 16)
     cfg = rt.get_arch(args.arch, smoke=not full)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     gcfg = kv.default_kv_config(k_max)
     gen = torch.Generator(device=dev).manual_seed(0)
     params = rt.init_params(cfg, gen, device=dev)
