@@ -72,6 +72,19 @@ its chunked prefill held to the step recurrence, and its exact decode;
 and the ten architectures' smoke configs in float32 and bf16, card
 against CPU.
 
+Then training (phase 17): Qwen3-0.6B whole (bf16, remat on) at a
+4,096-token sequence and a global batch of 8 (two micro-batches of 4),
+AdamW, through the trainer ``repro_torch.launch.train``: 8 steps
+unbroken, and 4 steps, an async checkpoint, a restore into fresh
+parameters and steps 5-8, which must end bit for bit where the unbroken
+run ends (deterministic algorithms), the loss falling; where a
+micro-batch's time goes; every smoke config's train step, card against
+CPU; ``--mode ddp-compress`` on the one-rank NCCL group against gloo on
+the CPU; and the serving launcher ``repro_torch.launch.serve`` at full
+width (prefill of 4 x 2,048 on the flash-attention kernel, 16 tokens
+decoded), its decode logits held to a full forward's, and the
+flash-attention kernel refusing an input that requires grad.
+
 All data is generated from a seed, not downloaded. It checks that each
 path launched its kernels, round-trips checkpoints, and reproduces the
 labels of models fitted and saved by the JAX reference
@@ -93,8 +106,12 @@ import tempfile
 import time
 import types
 
-import numpy as np
-import torch
+# phase 17 trains under torch.use_deterministic_algorithms, which needs a
+# fixed cuBLAS workspace; cuBLAS reads this when CUDA starts
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(ROOT, "tests", "data")
@@ -285,22 +302,24 @@ def device_ms(fn, iters, match=""):
     second step of the profiler's schedule, after a warm-up step of
     ``iters`` calls whose trace is dropped; and each kernel's time is its
     mean over the events the trace holds of it, times its launches a
-    call (its events over ``iters``, rounded, at least 1). Even so a
-    trace of a short loop can come back without the kernel (it has, at
-    phase 11's fit inputs): it is taken again, up to ``DEVICE_TRACES``
-    times in all, before this raises."""
+    call (its events over the loop's calls, rounded, at least 1). Even
+    so a trace of a short loop can come back without the kernel (it has,
+    at phase 11's fit inputs, and three times running at phase 16's
+    flash inputs): it is taken again over a loop 4 times as long, up to
+    ``DEVICE_TRACES`` times in all, before this raises."""
     from torch.profiler import ProfilerActivity, profile, schedule
     names = match if isinstance(match, tuple) else (match,)
     fn()
     torch.cuda.synchronize()
-    for _ in range(DEVICE_TRACES):
+    for attempt in range(DEVICE_TRACES):
+        calls = iters * 4 ** attempt
         traced = []
         with profile(activities=[ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1),
                      on_trace_ready=lambda p: traced.extend(p.key_averages())
                      ) as prof:
             for _ in range(2):
-                for _ in range(iters):
+                for _ in range(calls):
                     fn()
                 torch.cuda.synchronize()
                 prof.step()
@@ -308,7 +327,7 @@ def device_ms(fn, iters, match=""):
         for e in traced:
             if any(m in e.key for m in names) and \
                     e.self_device_time_total > 0:
-                per_call = max(1, round(e.count / iters))
+                per_call = max(1, round(e.count / calls))
                 total += e.self_device_time_total / e.count * per_call
         if total > 0.0:
             return total / 1e3
@@ -2693,6 +2712,456 @@ def lm_phase(rt, dev, all_kernels, int_rate):
     return total, errs
 
 
+# phase 17: training. Qwen3-0.6B whole (28 layers, bf16, remat on) at
+# train_4k's sequence of 4,096, the global batch cut from 256 to 8 (2
+# micro-batches of 4), AdamW with a warmup-cosine schedule, through the
+# trainer (launch.train): 8 steps unbroken, and 4 steps, an async
+# checkpoint, a fresh restore and steps 5-8, which must end bit for bit
+# where the unbroken run ends (deterministic algorithms; CUBLAS_WORKSPACE_
+# CONFIG is set at the top of this script, before CUDA starts)
+TRAIN_ARGV = ["--arch", "qwen3_0_6b", "--seq", "4096", "--batch", "8",
+              "--grad-accum", "2", "--steps", "8", "--lr", "1e-3",
+              "--warmup", "2", "--log-every", "1"]
+TRAIN_STOP = 4
+# the ten smoke configs' train step, card vs CPU: a batch of (4, 32), two
+# micro-batches, one AdamW step
+TRAIN_SMOKE_SHAPE, TRAIN_SMOKE_LR = (4, 32), 1e-3
+# the ddp-compress trainer on the one-rank NCCL group and on gloo
+DDP_ARGV = ["--arch", "qwen3_0_6b", "--smoke", "--mode", "ddp-compress",
+            "--steps", "2", "--batch", "4", "--seq", "32", "--lr", "1e-3",
+            "--warmup", "1", "--log-every", "1"]
+# the serving launcher at full width
+SERVE_ARGV = ["--arch", "qwen3_0_6b", "--batch", "4", "--prompt-len", "2048",
+              "--gen", "16"]
+
+
+def adamw_close(got, want, lr, steps, what, wd=0.1):
+    """``tests/test_torch_train.py::_adamw_close``: AdamW's parameters
+    after ``steps`` steps within 1e-3 lr on average, at most 1e-3 of the
+    elements more than lr / 100 apart (a step taken where a gradient is as
+    small as eps), each within two steps' size a step (a step moves an
+    element by at most lr · (1 + wd · |p|)). Returns (largest |Δ| / lr,
+    elements more than lr / 100 apart, elements)."""
+    from repro_torch.utils.tree import tree_leaves
+    far = total = 0
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(tree_leaves(got), tree_leaves(want))):
+        w = w.detach().float().cpu()
+        err = (g.detach().float().cpu() - w).abs()
+        step_size = lr * (1 + wd * float(w.abs().max()))
+        if float(err.max()) > 2 * steps * step_size or \
+                float(err.mean()) > 1e-3 * lr:
+            raise AssertionError(f"{what} leaf {i}: max {float(err.max())}, "
+                                 f"mean {float(err.mean())}")
+        far += int((err > lr / 100).sum())
+        total += err.numel()
+        worst = max(worst, float(err.max()) / lr)
+    if far > 1e-3 * total:
+        raise AssertionError(f"{what}: {far} of {total} elements apart")
+    return worst, far, total
+
+
+def flipped(got, want, scale, tight, loose, what):
+    """``tests/test_torch_train.py::_flipped``: each element within
+    ``tight · scale(leaf)`` except those an int8 rounding flipped, each
+    within ``loose · scale``. Returns (flipped, elements)."""
+    from repro_torch.utils.tree import tree_leaves
+    flips = total = 0
+    for i, (g, w) in enumerate(zip(tree_leaves(got), tree_leaves(want))):
+        w = w.detach().float().cpu()
+        err = (g.detach().float().cpu() - w).abs() / (scale(w) + 1e-30)
+        if float(err.max()) > loose:
+            raise AssertionError(f"{what} leaf {i}: {float(err.max())}")
+        flips += int((err > tight).sum())
+        total += err.numel()
+    return flips, total
+
+
+def train_resume(dev, card):
+    """Phase 17(a): the full-width trainer, unbroken and resumed."""
+    from repro_torch.launch import train as TR
+    from repro_torch.utils.tree import tree_leaves
+    cfg = TR.get_arch("qwen3_0_6b")
+    args = TR.build_parser().parse_args(TRAIN_ARGV)
+    tokens = args.batch * args.seq
+    phase(f"17a training: {cfg.name} whole ({cfg.num_layers} layers, "
+          f"d_model {cfg.d_model}, vocab {cfg.vocab_size:,}, {cfg.dtype}, "
+          f"remat {cfg.remat}), seq {args.seq}, global batch {args.batch} "
+          f"({args.grad_accum} micro-batches), AdamW, {args.steps} steps")
+
+    def run(*extra, **kw):
+        return TR.train(TR.build_parser().parse_args(TRAIN_ARGV + list(extra)),
+                        log=lambda s: print(f"  {s}", flush=True), **kw)
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        whole = run()
+        peak = torch.cuda.max_memory_allocated()
+        with tempfile.TemporaryDirectory() as ck:
+            every = ["--ckpt-dir", ck, "--ckpt-every", str(TRAIN_STOP)]
+            first = run(*every, stop=TRAIN_STOP)
+            first_losses, blocking = first["losses"], first["save_seconds"]
+            ckpt_bytes = sum(os.path.getsize(os.path.join(r, f))
+                             for r, _, fs in os.walk(ck) for f in fs)
+            del first                   # every tensor of the first run
+            torch.cuda.empty_cache()
+            second = run(*every, "--resume")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    losses = whole["losses"]
+    if not all(math.isfinite(v) for v in losses + second["losses"]):
+        raise AssertionError(f"non-finite losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    if first_losses != losses[:TRAIN_STOP] or \
+            second["losses"] != losses[TRAIN_STOP:]:
+        raise AssertionError(f"resumed losses {first_losses} "
+                             f"{second['losses']} against {losses}")
+    for a, b in zip(tree_leaves((second["params"], second["opt_state"])),
+                    tree_leaves((whole["params"], whole["opt_state"]))):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError("the resumed run's parameters or AdamW "
+                                 "state differ from the unbroken run's")
+    n_state = sum(t.numel() for t in tree_leaves(whole["opt_state"]))
+    steady = whole["step_seconds"][1:]
+    ms = 1e3 * sum(steady) / len(steady)
+    print(f"  losses {[round(v, 4) for v in losses]}; resumed from step "
+          f"{TRAIN_STOP}: parameters ({TR.MODEL.count_params(cfg):,}) and "
+          f"AdamW state ({n_state:,} floats) equal to the unbroken run's bit "
+          f"for bit, losses of steps 1-4 and 5-8 equal")
+    print(f"  step {ms:.1f} ms (steps 2-{args.steps}; first "
+          f"{whole['step_seconds'][0] * 1e3:.1f} ms), {tokens / ms * 1e3:,.0f} "
+          f"tokens/s; peak memory {peak / 2**30:.2f} GiB; checkpoint "
+          f"{ckpt_bytes / 2**30:.2f} GiB, save blocking "
+          f"{[round(s * 1e3, 1) for s in blocking + second['save_seconds']]} "
+          f"ms; {card}")
+    return whole
+
+
+def train_breakdown(dev, whole):
+    """Phase 17(a'): where a full-width micro-batch's time goes, from a
+    device trace of its forward and backward (kernel device time by kind:
+    float32 products, which are the attention's, TF32 off; the other
+    products, the linear layers' and the CE head's in bf16; softmax; the
+    rest) and the optimizer's update timed alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import steps as TS
+    from repro_torch.launch import train as TR
+    args = TR.build_parser().parse_args(TRAIN_ARGV)
+    cfg = TR.get_arch(args.arch)
+    pipe = TR.make_pipeline(cfg, args.batch, args.seq, args.seed)
+    batch = {k: v[:args.batch // args.grad_accum].to(dev)
+             for k, v in pipe.global_batch(0).items()}
+    params = whole["params"]
+    TS.loss_and_grads(cfg, params, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, _, grads = TS.loss_and_grads(cfg, params, batch)
+        torch.cuda.synchronize()
+    kinds = {"float32 products (attention)": 0.0,
+             "bf16 products (linear layers, CE head)": 0.0,
+             "softmax": 0.0, "other kernels": 0.0}
+    top = []
+    for e in prof.key_averages():
+        t = e.self_device_time_total / 1e3
+        if t <= 0:
+            continue
+        name = e.key.lower()
+        top.append((t, e.key, e.count))
+        if "softmax" in name:
+            kinds["softmax"] += t
+        elif any(s in name for s in ("gemm", "xmma", "cutlass", "nvjet",
+                                     "sm90", "sm80")):
+            f32 = any(s in name for s in ("sgemm", "f32f32", "fp32", "tf32")) \
+                and "bf16" not in name
+            kinds["float32 products (attention)" if f32 else
+                  "bf16 products (linear layers, CE head)"] += t
+        else:
+            kinds["other kernels"] += t
+    opt = TR.adamw(TR.warmup_cosine(args.lr, args.warmup, args.steps))
+    opt_ms = cuda_ms(lambda: opt.update(grads, whole["opt_state"], params,
+                                        0), 2)
+    total = sum(kinds.values())
+    print(f"  one micro-batch ({args.batch // args.grad_accum} x {args.seq}) "
+          f"forward + backward: {total:.1f} ms of device time; AdamW update "
+          f"{opt_ms:.1f} ms (CUDA events)")
+    for k, t in kinds.items():
+        print(f"    {k:42s} {t:9.1f} ms {t / total:6.1%}")
+    for t, n, c in sorted(top)[::-1][:16]:
+        print(f"    {t:9.1f} ms x{c:<5d} {n[:110]}")
+    return kinds, opt_ms
+
+
+def train_smoke_configs(rt, dev):
+    """Phase 17(b): one train step (two micro-batches, AdamW) of every
+    smoke config in float32, card against CPU: the updated parameters as
+    ``adamw_close``; the loss, the grad norm (relative) and each moment
+    leaf (of the leaf's scale) within 1e-5 (loss, grad norm) or 1e-4
+    (moments), or 4 times the step's own sensitivity, whichever is
+    larger: how far each moves on the CPU when every weight is moved by
+    about one float32 ulp (two draws). The card rounds each op apart from
+    the CPU by about that much, and a step can be ill-conditioned:
+    RWKV6's per-head group norm moves the smoke model's grad norm by
+    ~1-2e-3 and its moments by ~1-2e-3 of their scale for one-ulp
+    weights. MoE configs run with remat off and the card on the CPU's
+    routes (near ties counted)."""
+    import dataclasses
+
+    from _torch_parity import MoERoutes
+    from repro_torch.configs import list_archs
+    from repro_torch.launch import steps as TS
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.utils.tree import tree_leaves
+    phase("17b the ten smoke configs' train step: card vs CPU")
+    flips = 0
+    for arch in list_archs():
+        cfg = dataclasses.replace(rt.get_arch(arch, smoke=True),
+                                  dtype="float32")
+        if cfg.moe_num_experts:
+            cfg = dataclasses.replace(cfg, remat=False)
+        cpu = rt.init_params(cfg, 0, device="cpu")
+        rng = np.random.default_rng(0)
+        B, S = TRAIN_SMOKE_SHAPE
+        if cfg.frontend is None:
+            inputs = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)))
+        else:
+            inputs = torch.from_numpy(rng.standard_normal(
+                (B, S, cfg.d_model)).astype(np.float32))
+        batch = {"inputs": inputs, "labels": torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, (B, S)))}
+        opt = adamw(warmup_cosine(TRAIN_SMOKE_LR, 1, 4))
+        step = TS.make_train_step(cfg, opt, grad_accum=2)
+        routes = MoERoutes()
+        with routes.record():
+            pc, sc, _, mc = step(cpu, opt.init(cpu), 0, batch)
+        card = tree_map(lambda t: t.to(dev), cpu)
+        with routes.port(inject=True):
+            pg, sg, _, mg = step(card, opt.init(card), 0,
+                                 {k: v.to(dev) for k, v in batch.items()})
+        flips += len(routes.flips)
+        gen = torch.Generator().manual_seed(1)
+        sens = {"loss": 0.0, "grad_norm": 0.0}
+        moved_states = []
+        for _ in range(2):
+            moved = tree_map(lambda t: t * (1 + 2.0**-24 * torch.randn(
+                t.shape, generator=gen)), cpu)
+            _, ms, _, mp = step(moved, opt.init(moved), 0, batch)
+            moved_states.append(ms)
+            for k in sens:
+                sens[k] = max(sens[k], abs(float(mp[k]) - float(mc[k]))
+                              / abs(float(mc[k])))
+        for k in ("loss", "grad_norm"):
+            a, b = float(mg[k]), float(mc[k])
+            tol = max(1e-5, 4 * sens[k])
+            if not (math.isfinite(a) and abs(a - b) <= tol * abs(b)):
+                raise AssertionError(f"{arch} {k}: card {a}, CPU {b}, "
+                                     f"tolerance {tol} relative")
+        worst, far, total = adamw_close(pg, pc, TRAIN_SMOKE_LR, 1,
+                                        f"{arch} parameters")
+        for part in ("mu", "nu"):
+            for i, (g, c, *ms) in enumerate(zip(
+                    *(tree_leaves(t[part])
+                      for t in [sg, sc] + moved_states))):
+                scale = float(c.abs().max()) + 1e-30
+                own = max(float((m - c).abs().max()) for m in ms) / scale
+                err = float((g.cpu() - c).abs().max()) / scale
+                if err > max(1e-4, 4 * own):
+                    raise AssertionError(f"{arch} {part} leaf {i}: {err} of "
+                                         f"the scale, sensitivity {own}")
+        print(f"    {arch:28s} loss {float(mg['loss']):.6f} (CPU "
+              f"{float(mc['loss']):.6f}), grad norm {float(mg['grad_norm']):.5f}"
+              f" (CPU {float(mc['grad_norm']):.5f}, one-ulp sensitivity "
+              f"{sens['grad_norm']:.2g}); parameters: largest |Δ| "
+              f"{worst:.3g} lr, {far} of {total:,} more than lr/100 apart")
+    print(f"  MoE routes the card would choose otherwise: {flips}, each a "
+          "near tie")
+
+
+def train_ddp(dev):
+    """Phase 17(c): ``--mode ddp-compress`` for 2 steps of the Qwen3
+    smoke config through the trainer on the one-rank NCCL group; then
+    each of its 2 steps (``launch.train.make_ddp_step``) on the card held
+    to the same step on the CPU on a gloo group, from the same state (the
+    card's, copied): the loss within 1e-5 relative, parameters as
+    ``adamw_close``, moments and error-feedback residuals as ``flipped``.
+    A step is held from one state, since an int8 rounding that flips
+    (where the two devices' gradients straddle a half level) moves a
+    parameter by ~lr, and every later gradient with it. The two devices'
+    gradients at that state set the tolerances: with δ the largest
+    |Δg| / max |g| of a leaf (of the reference's layout, whose stacked
+    leaves are the int8 scales' groups), an element's moments move by
+    about δ of their scale (held to 4 δ, at least 2e-4) and its residual
+    by up to 2 · 127 δ of a level (|Δx| plus q times the scale's move; at
+    least 2e-3); a flip (probability about 127 |Δg| / max |g| at each of the
+    step's two roundings) moves the mean gradient by up to 2 levels, a
+    moment by up to 4 levels of its scale and a residual by one, and shows
+    in the element's two moments and its residual, so the flips are held
+    to 4 times what the mean of |Δg| / max |g| predicts, or 1e-4 of the
+    elements. Moments are compared in that layout too."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import steps as TS
+    from repro_torch.launch import train as TR
+    from repro_torch.models.convert import to_reference_layout
+    from repro_torch.utils.compat import Mesh, make_mesh
+    from repro_torch.utils.tree import tree_leaves
+    phase("17c ddp-compress: one-rank NCCL group vs gloo on the CPU")
+    args = TR.build_parser().parse_args(DDP_ARGV + ["--device", "cuda"])
+    cfg = TR.get_arch(args.arch, smoke=args.smoke)
+    weights = TR.init_params(cfg, args.seed, device=dev)
+    run = TR.train(args, params=weights, mesh=make_mesh(),
+                   log=lambda s: print(f"  {s}"))
+    opt = TR.adamw(TR.warmup_cosine(args.lr, args.warmup, args.steps))
+    gloo = dist.new_group([0], backend="gloo")
+    card_step = TR.make_ddp_step(cfg, opt, make_mesh())
+    cpu_step = TR.make_ddp_step(cfg, opt, Mesh(group=gloo))
+    pipe = TR.make_pipeline(cfg, args.batch, args.seq, args.seed)
+    state = (weights, opt.init(weights), TR.ddp_residuals(weights, cfg))
+    total = sum(t.numel() for t in tree_leaves(weights))
+    losses = []
+    for step in range(args.steps):
+        batch = pipe.global_batch(step)
+        g = card_step(*state, step, {k: v.to(dev) for k, v in batch.items()})
+        c = cpu_step(*tree_map(lambda t: t.cpu(), list(state)), step, batch)
+        grads = [to_reference_layout(TS.loss_and_grads(
+            cfg, tree_map(lambda t: t.to(d), state[0]),
+            {k: v.to(d) for k, v in batch.items()})[2], cfg, torch.stack,
+            lambda t: t) for d in (dev, "cpu")]
+        rel = [(a.cpu() - b).abs() / b.abs().max()
+               for a, b in zip(*map(tree_leaves, grads))]
+        delta = sum(float(r.sum()) for r in rel) / total
+        delta_max = max(float(r.max()) for r in rel)
+        expected = 127 * delta * total * 2 * 3
+        if not abs(float(g[3]) - float(c[3])) <= 1e-5 * abs(float(c[3])):
+            raise AssertionError(f"step {step + 1} loss {float(g[3])} "
+                                 f"against {float(c[3])}")
+        worst, far, _ = adamw_close(g[0], c[0], 1e-3, 1,
+                                    f"step {step + 1} parameters")
+        by_part, count = {}, 0
+        for part in ("mu", "nu"):
+            by_part[part], t = flipped(
+                *(to_reference_layout(x[1][part], cfg, torch.stack,
+                                      lambda t: t) for x in (g, c)),
+                lambda w: w.abs().max(), max(2e-4, 4 * delta_max),
+                4.2 / 127, f"step {step + 1} {part}")
+            count += t
+        by_part["resid"], t = flipped(
+            g[2], c[2], lambda w: 2 * w.abs().max(),
+            max(2e-3, 2 * 127 * delta_max), 1.01, f"step {step + 1} resid")
+        count += t
+        flips = sum(by_part.values())
+        if flips > max(1e-4 * count, 4 * expected):
+            raise AssertionError(f"step {step + 1}: {flips} of {count} "
+                                 f"elements flipped, {expected:.0f} expected")
+        print(f"  step {step + 1} from the same state: loss {float(g[3]):.6f} "
+              f"(CPU {float(c[3]):.6f}); parameters largest |Δ| {worst:.3g} "
+              f"lr, {far} more than lr/100 apart; gradients |Δg| largest "
+              f"{delta_max:.3g}, mean {delta:.3g} of their leaves' scale; "
+              f"int8 roundings flipped {by_part} of {count:,} ({expected:.0f}"
+              " expected)")
+        losses.append(float(g[3]))
+        state = g[:3]
+    dist.destroy_process_group(gloo)
+    if not all(abs(a - b) <= 1e-5 * abs(b)
+               for a, b in zip(run["losses"], losses)):
+        raise AssertionError(f"the trainer's losses {run['losses']} against "
+                             f"its steps' {losses}")
+
+
+def serve_launcher(rt, dev, kernels):
+    """Phase 17(d): ``launch.serve`` at full width; every prefill launch
+    of flash_attention held to ``attention_ref`` (``fa_check``); the last
+    decode step's logits against a full forward's over everything fed
+    (relative L2, ``KV_LOGIT_RTOL``: the prefill's bf16 attention
+    outputs round apart from the plain attention's); a CUDA input that
+    requires grad raises in the kernel's wrapper."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import model as M
+    args = SV.build_parser().parse_args(SERVE_ARGV)
+    cfg = rt.get_arch(args.arch)
+    phase(f"17d serving launcher: {cfg.name} whole, batch {args.batch}, "
+          f"prompt {args.prompt_len}, {args.gen} generated")
+    errs = []
+    real = kops.flash_attention
+
+    def checked(q, k, v, *, causal=True):
+        o = real(q, k, v, causal=causal)
+        errs.append(fa_check(o, ref.attention_ref(q, k, v, causal=causal),
+                             "serve prefill"))
+        return o
+
+    reset_launches(*kernels)
+    kops.flash_attention = checked
+    try:
+        out = SV.serve(args, log=lambda s: print(f"  {s}"))
+    finally:
+        kops.flash_attention = real
+    launched = {k.__name__: k.launches for k in kernels}
+    if launched["flash_attention"] != cfg.num_layers or \
+            len(errs) != cfg.num_layers:
+        raise AssertionError(f"the prefill launched flash_attention "
+                             f"{launched['flash_attention']} times")
+    with torch.no_grad():
+        h, _, _ = M.forward(out["params"], cfg, out["inputs"])
+        full = (h[:, -1] @ out["params"]["head"]["w"]).float()
+    rel = float((out["logits"] - full).norm() / full.norm())
+    if not rel <= KV_LOGIT_RTOL:
+        raise AssertionError(f"decode logits against a full forward: {rel}")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn((1, 16, 128, 64), generator=gen, device=dev,
+                           dtype=torch.bfloat16) for _ in range(3))
+    before = fa.flash_attention.launches
+    try:
+        kops.flash_attention(q.requires_grad_(), k, v)
+        refused = False
+    except RuntimeError as e:
+        refused = "forward only" in str(e)
+    if not refused or fa.flash_attention.launches != before:
+        raise AssertionError("flash_attention took an input that requires "
+                             "grad")
+    print(f"  flash_attention launches {launched['flash_attention']} (one an "
+          f"attention layer), each within FA_TOL of attention_ref (largest "
+          f"|Δ| {max(errs):.3g}); last decode logits vs a full forward over "
+          f"the {out['inputs'].shape[1]} positions: relative L2 {rel:.3g} "
+          f"(tolerance {KV_LOGIT_RTOL}), argmax equal "
+          f"{float((out['logits'].argmax(-1) == full.argmax(-1)).float().mean()):.0%}"
+          f"; an input that requires grad: refused")
+    return launched, max(errs)
+
+
+def train_phase(rt, dev, all_kernels, card):
+    """Phase 17: training (a-c) and the serving launcher (d). Returns the
+    launches of (d)'s path by kernel and flash_attention's largest error
+    there."""
+    from repro_torch.kernels import distance_argmin as da
+    from repro_torch.kernels import flash_attention as fa
+    kernels = all_kernels + (fa.flash_attention, fa.flash_centroid_attention,
+                             fa.flash_centroid_decode,
+                             da.distance_argmin_l2_heads, da.l2_absorb_heads)
+    t0 = time.perf_counter()
+    reset_launches(*kernels)
+    whole = train_resume(dev, card)
+    train_breakdown(dev, whole)
+    del whole
+    torch.cuda.empty_cache()
+    train_smoke_configs(rt, dev)
+    train_ddp(dev)
+    if any(k.launches for k in kernels):
+        raise AssertionError("a training path launched a kernel: "
+                             f"{ {k.__name__: k.launches for k in kernels} }")
+    launched, err = serve_launcher(rt, dev, kernels)
+    torch.cuda.empty_cache()
+    print(f"  phase 17: {time.perf_counter() - t0:.1f} s; launches on its "
+          f"paths {launched}; {card}")
+    return launched, err
+
+
 T0 = time.perf_counter()
 
 
@@ -3317,6 +3786,11 @@ def run_paths(rt, dev, gen, card, int_rate, popc_rate, data, x_fit, x_new,
     lm_launch, lm_errs = lm_phase(rt, dev, all_kernels, int_rate)
     for k in new_paths:
         new_paths[k] += lm_launch[k]
+    train_launch, train_err = train_phase(rt, dev, all_kernels, card)
+    for k in new_paths:
+        new_paths[k] += train_launch[k]
+    lm_errs["flash_attention"] = max(lm_errs.get("flash_attention", 0.0),
+                                     train_err)
     kernels = [
         {"name": "distance_argmin_l2", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/distance_argmin.cu",
@@ -3356,9 +3830,10 @@ def run_paths(rt, dev, gen, card, int_rate, popc_rate, data, x_fit, x_new,
          "library_ms": None},
     ]
     for row in flash_rows:
-        row["launches"] = kv_launch[row["name"]] + lm_launch[row["name"]]
+        row["launches"] = (kv_launch[row["name"]] + lm_launch[row["name"]]
+                           + train_launch[row["name"]])
     for row in decode_rows:
-        row["launches"] += lm_launch[row["name"]]
+        row["launches"] += lm_launch[row["name"]] + train_launch[row["name"]]
     for row in flash_rows + decode_rows:
         row["max_abs_err"] = max(row["max_abs_err"],
                                  lm_errs.get(row["name"], 0.0))

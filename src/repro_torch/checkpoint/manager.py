@@ -1,16 +1,26 @@
-"""GeekModel save/restore in the reference's checkpoint format, with no JAX.
+"""Checkpoints in the reference's format, with no JAX: the
+``CheckpointManager`` of training states, and GeekModel save/restore on
+top of it.
 
-The counterpart of ``repro.checkpoint.manager.save_model`` /
-``restore_model``. A checkpoint directory holds ``step_<8 digits>/``
-with one ``leaf_<5 digits>.npy`` per array and a ``manifest.json``
-(``{"step", "treedef", "extra", "leaves"}``). Leaf *i* is the *i*-th name
-of ``extra["fields"]``: the reference stores ``sorted(arrays)`` and JAX
-flattens a dict in sorted-key order. The ``treedef`` string is ignored
-on read. A step is written into ``tmp.<step>`` and renamed into place
-only when complete, so a crash never leaves a half-written step.
+The counterpart of ``repro.checkpoint.manager``. A checkpoint directory
+holds ``step_<8 digits>/`` with one ``leaf_<5 digits>.npy`` per array and
+a ``manifest.json`` (``{"step", "treedef", "extra", "leaves"}``, each
+leaf's file, shape and dtype). Leaves are numbered in JAX's flatten
+order (``utils.tree``: dict keys sorted, lists and tuples in order), so
+either package restores the other's trees. A step is written into
+``tmp.<step>`` and renamed into place only when complete, so a crash
+never leaves a half-written step; ``keep`` most recent steps are kept.
 
-``model_from_numpy`` carries state across: host arrays + manifest
-metadata -> a ``GeekModel`` on a device.
+bfloat16 leaves are written as the reference writes them (``np.save`` of
+an ``ml_dtypes`` array: a ``'<V2'`` header and the raw words, with
+``"bfloat16"`` in the manifest) and read back by the manifest's dtype.
+The reference's own restore returns them as raw ``|V2`` arrays, which
+JAX refuses (ROADMAP.md, Queue 3, "Not port faults").
+
+``save_model`` / ``restore_model`` persist a fitted ``GeekModel``: leaf
+*i* is the *i*-th name of ``extra["fields"]`` (the reference stores
+``sorted(arrays)``). ``model_from_numpy`` carries state across: host
+arrays + manifest metadata -> a ``GeekModel`` on a device.
 """
 from __future__ import annotations
 
@@ -18,15 +28,19 @@ import dataclasses
 import json
 import os
 import shutil
+import threading
 
 import numpy as np
 import torch
 
 from repro_torch.core import model as model_mod
 from repro_torch.core import transform as transform_mod
+from repro_torch.models.convert import BF16_WORDS, tensor_from_numpy, \
+    tensor_to_numpy
 from repro_torch.utils import compat
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.hashing import derive_hash_keys_from_key
+from repro_torch.utils.tree import tree_flatten, tree_unflatten, treedef_str
 
 #: dtypes of the canonical leaves, as the reference writes them; centers
 #: are float32 centroids for l2 and int32 mode codes for hamming
@@ -41,11 +55,155 @@ def _host(t) -> np.ndarray:
         else np.asarray(t)
 
 
+def _snapshot(leaf) -> tuple[np.ndarray, str]:
+    """(host array, manifest dtype) of a leaf: a tensor, a numpy array or
+    a scalar; bfloat16 (a tensor, an ``ml_dtypes`` array, or raw ``V2``
+    words) as its raw words, named ``"bfloat16"``."""
+    if isinstance(leaf, torch.Tensor):
+        leaf = tensor_to_numpy(leaf)
+    a = np.asarray(leaf)
+    if a.dtype.name == "bfloat16" or a.dtype == BF16_WORDS:
+        return np.ascontiguousarray(a).view(BF16_WORDS), "bfloat16"
+    return a, str(a.dtype)
+
+
+def _save_leaf(path: str, a: np.ndarray, dtype: str) -> None:
+    if dtype != "bfloat16":
+        np.save(path, a)
+        return
+    with open(path, "wb") as fh:              # what np.save writes for bf16
+        np.lib.format.write_array_header_1_0(
+            fh, {"descr": "<V2", "fortran_order": False, "shape": a.shape})
+        fh.write(a.tobytes())
+
+
+def _load_leaf(path: str, dtype: str) -> torch.Tensor:
+    """A leaf file read by its manifest dtype, as a CPU tensor."""
+    a = np.load(path)
+    if dtype == "bfloat16":
+        return tensor_from_numpy(a.view(BF16_WORDS), "cpu")
+    return torch.from_numpy(a)
+
+
 def _step_dir(directory: str, step: int) -> str:
     return os.path.join(directory, f"step_{step:08d}")
 
 
-def save_model(directory: str, model, *, step: int = 0) -> None:
+def _latest_step(directory: str) -> int:
+    """The newest step in ``directory``; raises when there is none."""
+    step = CheckpointManager(directory, create=False).latest_step()
+    if step is None:
+        raise FileNotFoundError(f"no checkpoints in {directory}")
+    return step
+
+
+class CheckpointManager:
+    """Atomic, async checkpoints of a tree of tensors (or numpy arrays)
+    in the reference's format, with ``keep`` most recent steps retained.
+    ``create=False`` for read-only use: probing a path must not make it."""
+
+    def __init__(self, directory: str, *, keep: int = 3,
+                 create: bool = True):
+        self.dir = directory
+        self.keep = keep
+        if create:
+            os.makedirs(directory, exist_ok=True)
+        self._thread: threading.Thread | None = None
+
+    # -- save ---------------------------------------------------------------
+
+    def save(self, step: int, tree, *, wait: bool = True,
+             extra: dict | None = None) -> None:
+        """Snapshot ``tree`` to host memory now (device to host copies),
+        then write it: here, or with ``wait=False`` on a thread, which
+        ``wait_for_save`` (or the next ``save``) joins. ``extra`` is a
+        JSON-serializable blob stored in the manifest."""
+        self.wait_for_save()
+        leaves, _ = tree_flatten(tree)
+        host = [_snapshot(leaf) for leaf in leaves]
+        manifest = {"step": step, "treedef": treedef_str(tree),
+                    "extra": extra,
+                    "leaves": [{"file": f"leaf_{i:05d}.npy",
+                                "shape": list(a.shape), "dtype": dt}
+                               for i, (a, dt) in enumerate(host)]}
+
+        def write():
+            tmp = os.path.join(self.dir, f"tmp.{step}")
+            final = _step_dir(self.dir, step)
+            if os.path.exists(tmp):
+                shutil.rmtree(tmp)
+            os.makedirs(tmp)
+            for i, (a, dt) in enumerate(host):
+                _save_leaf(os.path.join(tmp, f"leaf_{i:05d}.npy"), a, dt)
+            with open(os.path.join(tmp, "manifest.json"), "w") as fh:
+                json.dump(manifest, fh)
+            if os.path.exists(final):
+                shutil.rmtree(final)
+            os.rename(tmp, final)                   # atomic publish
+            self._gc()
+
+        if wait:
+            write()
+        else:
+            self._thread = threading.Thread(target=write, daemon=True)
+            self._thread.start()
+
+    def wait_for_save(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    def _gc(self) -> None:
+        steps = self.all_steps()
+        for s in steps[:-self.keep] if self.keep else []:
+            shutil.rmtree(_step_dir(self.dir, s), ignore_errors=True)
+
+    # -- restore ------------------------------------------------------------
+
+    def all_steps(self) -> list[int]:
+        if not os.path.isdir(self.dir):
+            raise FileNotFoundError(f"no checkpoint directory {self.dir}")
+        return sorted(int(name.split("_")[1]) for name in os.listdir(self.dir)
+                      if name.startswith("step_"))
+
+    def latest_step(self) -> int | None:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def load_manifest(self, *, step: int | None = None) -> dict:
+        if step is None:
+            step = self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {self.dir}")
+        with open(os.path.join(_step_dir(self.dir, step),
+                               "manifest.json")) as fh:
+            return json.load(fh)
+
+    def restore(self, target_tree, *, step: int | None = None, device=None):
+        """(``target_tree``'s structure holding the step's leaves, step).
+        The target's leaves are not read. Each leaf comes back as a tensor
+        of its manifest dtype, on ``device`` (``None`` leaves it on the
+        host, as the reference's restore without ``shardings`` does)."""
+        manifest = self.load_manifest(step=step)
+        path = _step_dir(self.dir, manifest["step"])
+        targets, treedef = tree_flatten(target_tree)
+        if len(targets) != len(manifest["leaves"]):
+            raise ValueError(f"{path} holds {len(manifest['leaves'])} "
+                             f"leaves, the target tree {len(targets)}")
+        leaves = [_load_leaf(os.path.join(path, leaf["file"]), leaf["dtype"])
+                  for leaf in manifest["leaves"]]
+        if device is not None:
+            dev = resolve_device(device)
+            leaves = [t.to(dev) for t in leaves]
+        return tree_unflatten(treedef, leaves), manifest["step"]
+
+
+# ---------------------------------------------------------------------------
+# GeekModel save/restore
+# ---------------------------------------------------------------------------
+
+def save_model(directory: str, model, *, step: int = 0,
+               wait: bool = True) -> None:
     """Persist a fitted GeekModel, readable by ``repro``'s restore_model
     (except a sparse model's transform: ``core.transform``)."""
     dtypes = dict(_LEAF_DTYPES, centers=_CENTER_DTYPES[model.metric][0])
@@ -56,40 +214,10 @@ def save_model(directory: str, model, *, step: int = 0) -> None:
         tmeta = transform_mod.transform_meta(model.transform)
         for name, arr in transform_mod.transform_arrays(model.transform).items():
             arrays["transform_" + name] = _host(arr)
-    fields = sorted(arrays)
-    extra = {"kind": "geek_model", "meta": model.static_meta(),
-             "transform": tmeta, "fields": fields}
-    manifest = {"step": step,
-                "treedef": "PyTreeDef({" + ", ".join(
-                    f"'{f}': *" for f in fields) + "})",
-                "extra": extra,
-                "leaves": [{"file": f"leaf_{i:05d}.npy",
-                            "shape": list(arrays[f].shape),
-                            "dtype": str(arrays[f].dtype)}
-                           for i, f in enumerate(fields)]}
-    os.makedirs(directory, exist_ok=True)
-    tmp = os.path.join(directory, f"tmp.{step}")
-    final = _step_dir(directory, step)
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp)
-    for i, f in enumerate(fields):
-        np.save(os.path.join(tmp, f"leaf_{i:05d}.npy"), arrays[f])
-    with open(os.path.join(tmp, "manifest.json"), "w") as fh:
-        json.dump(manifest, fh)
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.rename(tmp, final)
-
-
-def _latest_step(directory: str) -> int:
-    if not os.path.isdir(directory):
-        raise FileNotFoundError(f"no checkpoint directory {directory}")
-    steps = sorted(int(name.split("_")[1]) for name in os.listdir(directory)
-                   if name.startswith("step_"))
-    if not steps:
-        raise FileNotFoundError(f"no checkpoints in {directory}")
-    return steps[-1]
+    CheckpointManager(directory).save(
+        step, arrays, wait=wait,
+        extra={"kind": "geek_model", "meta": model.static_meta(),
+               "transform": tmeta, "fields": sorted(arrays)})
 
 
 def model_from_numpy(arrays: dict[str, np.ndarray], meta: dict,
@@ -158,11 +286,9 @@ def restore_model(directory: str, *, step: int | None = None,
     device = resolve_device(device)
     if mesh is not None:
         compat.check_device(mesh, device)
-    if step is None:
-        step = _latest_step(directory)
-    path = _step_dir(directory, step)
-    with open(os.path.join(path, "manifest.json")) as fh:
-        manifest = json.load(fh)
+    manifest = CheckpointManager(directory, create=False).load_manifest(
+        step=step)
+    path = _step_dir(directory, manifest["step"])
     extra = manifest.get("extra") or {}
     if extra.get("kind") != "geek_model":
         raise ValueError(f"{directory} does not hold a GeekModel checkpoint")

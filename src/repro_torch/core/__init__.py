@@ -1,8 +1,9 @@
 """Core pipeline: LSH buckets, SILK seeding, centers and assignment, the facade.
 
-Re-exports every name of ``repro.core.__all__``, so that ``from
-repro_torch.core import GEEK`` works where ``from repro.core import GEEK``
-does; the surface is locked by ``tests/test_torch_api_surface.py``.
+Re-exports every name of ``repro.core.__all__``, so that each import
+of a name from the reference's ``repro.core`` works from
+``repro_torch.core``; the surface is locked by
+``tests/test_torch_api_surface.py``.
 """
 from repro_torch.core.api import (  # noqa: F401
     GEEK,

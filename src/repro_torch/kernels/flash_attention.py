@@ -33,6 +33,13 @@ double-buffered; P enters P·V as three bf16 parts so that it keeps
 float32 accuracy); float32 runs float32 FMA on the CUDA cores. The centroid
 kernel shares the float32 routine's tile code. The plain versions are
 ``ref.attention_ref`` and ``ref.centroid_attention_ref``.
+
+The kernels are forward only, as the reference's are (it trains through
+XLA's attention): each wrapper writes into a fresh tensor, which autograd
+cannot see into. So every entry raises on an input that requires grad
+while grad mode is on, rather than return an output cut off from the
+graph; training takes the plain attention (``models.layers.attn_apply``
+without a cache).
 """
 from __future__ import annotations
 
@@ -79,10 +86,22 @@ def _device_index(dev: torch.device) -> int:
     return dev.index if dev.index is not None else torch.cuda.current_device()
 
 
+def forward_only(what: str, *tensors) -> None:
+    """Raise if grad mode is on and an input requires grad: the kernel has
+    no backward pass, and its output would not carry the gradient."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: the kernel is forward only and its output would be cut "
+            "off from the autograd graph; call it under torch.no_grad(), or "
+            "train through the plain attention (attn_apply without a cache)")
+
+
 def _prepare(q, kv: tuple, what: str):
     """Check the inputs; return them in one element type (q's when all
     share a type the kernel takes, else float32), each with a contiguous
     feature axis (other strides, broadcasts included, pass as they are)."""
+    forward_only(what, q, *kv)
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"{what} runs on CUDA tensors, got {dev}")
@@ -152,6 +171,7 @@ def flash_centroid_attention(q: torch.Tensor, centers: torch.Tensor,
     Returns (B, Hq, S, dh) in q's dtype. Counts one launch in
     ``flash_centroid_attention.launches`` (which ``flash_centroid_decode``
     ticks too)."""
+    forward_only("flash_centroid_attention", log_mass)
     (qc, cc, vc), dt = _prepare(q, (centers, v_cent),
                                 "flash_centroid_attention")
     B, Hq, S, dh = qc.shape
@@ -204,6 +224,7 @@ def flash_centroid_decode(q: torch.Tensor, centers: torch.Tensor,
     ``flash_centroid_attention.launches``, which counts both kernels of
     the function."""
     what = "flash_centroid_decode"
+    forward_only(what, q, centers, v_cent, mass, extra_k, extra_v)
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"{what} runs on CUDA tensors, got {dev}")

@@ -103,7 +103,10 @@ def minhash_even_buckets(ids, keys):
 
 def flash_attention(q, k, v, *, causal: bool = True):
     """GQA attention of q (B, Hq, S, dh) over k, v (B, Hkv, S, dh), float32
-    inside, output in q's dtype: ``ref.attention_ref``'s function."""
+    inside, output in q's dtype: ``ref.attention_ref``'s function. The
+    kernel is forward only: a CUDA input that requires grad while grad
+    mode is on raises (``flash_attention.forward_only``); the CPU's plain
+    version is differentiable."""
     if _on_cpu(q):
         return _ref.attention_ref(q, k, v, causal=causal)
     return _fa.flash_attention(q, k, v, causal=causal)

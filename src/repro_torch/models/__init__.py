@@ -1,7 +1,11 @@
 """The LM substrate of the port: attention, Mamba and RWKV6 mixers, MLP
-and MoE feed-forwards, the ten architectures of ``repro_torch.configs``."""
+and MoE feed-forwards, the ten architectures of ``repro_torch.configs``,
+and the training loss."""
 from repro_torch.models.config import ArchConfig  # noqa: F401
-from repro_torch.models.convert import params_from_numpy  # noqa: F401
+from repro_torch.models.convert import (  # noqa: F401
+    params_from_numpy,
+    params_to_numpy,
+)
 from repro_torch.models.model import (  # noqa: F401
     count_active_params,
     count_params,
@@ -9,4 +13,5 @@ from repro_torch.models.model import (  # noqa: F401
     forward,
     init_params,
     prefill_step,
+    train_loss,
 )

@@ -4,8 +4,8 @@ counterpart of ``repro.models.layers``).
 
 Plain functions on tensors and dictionaries of tensors. Weights keep the
 reference's ``(in, out)`` layout, so a layer is ``x @ w`` in both
-packages. The reference's ``*_spec`` functions, ``sharding.constrain``
-and ``chunked_cross_entropy`` wait for the training slice (ROADMAP.md).
+packages. The reference's ``*_spec`` functions and ``sharding.constrain``
+wait for the sharding slice (ROADMAP.md, Queue 1 item 15 part 3).
 
 KV caches are updated in place (the reference returns new arrays): a
 decode step writes one row per layer instead of copying the cache.
@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ArchConfig
@@ -257,3 +258,41 @@ def embed_init(gen, cfg: ArchConfig, device="cpu"):
 def head_init(gen, cfg: ArchConfig, device="cpu"):
     return {"w": normal(gen, (cfg.d_model, cfg.padded_vocab),
                         cfg.d_model ** -0.5, dtype_of(cfg), device)}
+
+
+def _chunk_ce(xc: torch.Tensor, w_head: torch.Tensor,
+              lc: torch.Tensor) -> torch.Tensor:
+    """Token CE of one chunk: (B, c, d) hidden, (B, c) labels -> (B, c)."""
+    logits = (xc @ w_head).to(torch.float32)                  # (B, c, V)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lc[..., None].to(torch.long))[..., 0]
+    return logz - gold
+
+
+def chunked_cross_entropy(x: torch.Tensor, w_head: torch.Tensor,
+                          labels: torch.Tensor, *,
+                          chunk: int = 512) -> torch.Tensor:
+    """Mean token CE without materializing full (B, S, V) logits: the
+    sequence is cut into ``max(S // chunk, 1)`` equal chunks, each
+    chunk's logits cast to float32, logsumexp minus the gold logit, then
+    the mean over every token. An S that those chunks do not divide
+    raises, as the reference's reshape does (no token is dropped).
+
+    With grad enabled each chunk is recomputed in the backward pass
+    (``torch.utils.checkpoint``), so only one chunk's (B, c, V) float32
+    logits live at a time; the values are the same either way."""
+    B, S, d = x.shape
+    nchunk = max(S // chunk, 1)
+    chunk = S // nchunk
+    if nchunk * chunk != S:
+        raise ValueError(f"sequence length {S} is not {nchunk} chunks of "
+                         f"{chunk}")
+    losses = []
+    for c0 in range(0, S, chunk):
+        xc, lc = x[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
+        if torch.is_grad_enabled():
+            losses.append(checkpoint(_chunk_ce, xc, w_head, lc,
+                                     use_reentrant=False))
+        else:
+            losses.append(_chunk_ce(xc, w_head, lc))
+    return torch.stack(losses).mean()

@@ -1,12 +1,13 @@
-"""Top-level model API: init / forward / prefill / decode (the counterpart
-of ``repro.models.model``).
+"""Top-level model API: init / forward / train loss / prefill / decode
+(the counterpart of ``repro.models.model``).
 
 Parameters are a dictionary: ``layers`` (one dictionary per layer),
 ``final_norm``, ``head`` and, for token inputs, ``embed``. Weights from
 the reference carry across with ``models.convert.params_from_numpy``.
 Caches are one dictionary per layer (attention K/V, Mamba or RWKV
-state), updated in place. The training loss (``chunked_cross_entropy``)
-waits for the training slice (ROADMAP.md).
+state), updated in place. ``train_loss`` is the mean token cross
+entropy (``layers.chunked_cross_entropy``) plus the MoE auxiliary loss;
+``launch.steps.make_train_step`` differentiates it.
 """
 from __future__ import annotations
 
@@ -68,6 +69,14 @@ def forward(params, cfg: ArchConfig, inputs, *, positions=None, caches=None,
                                        attn_override=attn_override)
     x = L.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     return x, new_caches, aux
+
+
+def train_loss(params, cfg: ArchConfig, batch, *, aux_weight: float = 0.01):
+    """batch: {"inputs": tokens or embeds, "labels": (B, S) int}. Returns
+    (ce + aux_weight · aux, {"ce": ce, "aux": aux}), float32 scalars."""
+    x, _, aux = forward(params, cfg, batch["inputs"])
+    ce = L.chunked_cross_entropy(x, params["head"]["w"], batch["labels"])
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
 def prefill_step(params, cfg: ArchConfig, inputs):

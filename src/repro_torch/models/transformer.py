@@ -9,13 +9,17 @@ The reference stacks parameters over the periods of ``cfg.layer_plan()``
 keeps one parameter dictionary per layer and loops over the layers in
 Python, handing an attention override the global layer index as the
 reference's per-layer loop does. Caches (attention K/V, Mamba and RWKV
-states) are one dictionary per layer, updated in place.
+states) are one dictionary per layer, updated in place. With
+``cfg.remat``, grad enabled and no caches, each period of layers is
+recomputed in the backward pass (``torch.utils.checkpoint``), as the
+reference checkpoints each period: only the periods' inputs are kept.
 """
 from __future__ import annotations
 
 import functools
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -122,17 +126,34 @@ def stack_apply(layers, x, cfg: ArchConfig, *, positions, caches=None,
     as ``override(global_layer, p_attn, h, positions=, cache=,
     cache_len=) -> (y, new_cache)``.
     """
+    plan = cfg.layer_plan()
+    period = cfg.period()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches = [] if caches is not None else None
-    for layer, (mix, ffn) in enumerate(cfg.layer_plan()):
-        override = None
-        if attn_override is not None and mix == "attn":
-            override = functools.partial(attn_override, layer)
-        x, nc, a = block_apply(
-            layers[layer], x, cfg, mix, ffn, positions=positions,
-            cache=caches[layer] if caches is not None else None,
-            cache_len=cache_len, attn_override=override)
-        aux = aux + a
-        if caches is not None:
-            new_caches.append(nc)
+
+    def run(layer0, x, aux):
+        """Layers ``layer0 .. layer0 + period - 1``: (x, aux, their caches)."""
+        ncs = []
+        for layer in range(layer0, layer0 + period):
+            mix, ffn = plan[layer]
+            override = None
+            if attn_override is not None and mix == "attn":
+                override = functools.partial(attn_override, layer)
+            x, nc, a = block_apply(
+                layers[layer], x, cfg, mix, ffn, positions=positions,
+                cache=caches[layer] if caches is not None else None,
+                cache_len=cache_len, attn_override=override)
+            aux = aux + a
+            ncs.append(nc)
+        return x, aux, ncs
+
+    remat = cfg.remat and caches is None and torch.is_grad_enabled()
+    for layer0 in range(0, cfg.num_layers, period):
+        if remat:
+            x, aux = checkpoint(lambda x, aux, l0=layer0: run(l0, x, aux)[:2],
+                                x, aux, use_reentrant=False)
+        else:
+            x, aux, ncs = run(layer0, x, aux)
+            if caches is not None:
+                new_caches.extend(ncs)
     return x, new_caches, aux

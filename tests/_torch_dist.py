@@ -321,3 +321,33 @@ def serve_outputs(rank: int, world: int, ckpt_dir: str):
             out[probes] = dict(refused=refused,
                                alive=server._worker.is_alive())
     return out
+
+
+# ---------------------------------------------------------------------------
+# What each rank computes for tests/test_torch_train.py
+# ---------------------------------------------------------------------------
+
+#: the ddp-compress trainer's arguments (Qwen3 smoke, float32)
+DDP_ARGS = ["--device", "cpu", "--arch", "qwen3_0_6b", "--smoke",
+            "--mode", "ddp-compress", "--steps", "2", "--batch", "4",
+            "--seq", "32", "--lr", "1e-3", "--warmup", "1", "--log-every",
+            "100"]
+
+
+def ddp_train_outputs(rank: int, world: int):
+    """This rank's ``launch.train --mode ddp-compress`` run of DDP_ARGS on
+    the default (gloo) group: its losses, and its parameters, AdamW state
+    and error-feedback residuals in the reference's layout (numpy; the
+    residuals are kept in it)."""
+    from repro_torch.launch import train as T
+    from repro_torch.models.convert import params_to_numpy, tensor_to_numpy
+    from repro_torch.utils.compat import make_mesh
+    from repro_torch.utils.tree import tree_map
+    args = T.build_parser().parse_args(DDP_ARGS)
+    out = T.train(args, mesh=make_mesh(), log=lambda _: None)
+    cfg = T.get_arch(args.arch, smoke=args.smoke)
+    return {"losses": out["losses"],
+            "params": params_to_numpy(out["params"], cfg),
+            "state": {k: params_to_numpy(v, cfg)
+                      for k, v in out["opt_state"].items()},
+            "resid": tree_map(tensor_to_numpy, out["resid"])}

@@ -171,3 +171,101 @@ def test_torch_top_level_seeders_are_the_facades():
     assert repro_torch.KMeansPPSeeder is api.KMeansPPSeeder
     assert repro_torch.ScalableKMeansPPSeeder is api.ScalableKMeansPPSeeder
     assert repro_torch.core.KMeansPPSeeder is api.KMeansPPSeeder
+
+
+# ---------------------------------------------------------------------------
+# the training slice (ROADMAP.md Queue 1 item 15, part 2)
+# ---------------------------------------------------------------------------
+
+#: reference names of the LM substrate that wait for the sharding slice,
+#: by ROADMAP.md Queue 1 item: the PartitionSpec trees
+PART3_NOT_PORTED = {"param_specs": "15.3", "cache_specs": "15.3"}
+#: fields of the reference's ``Optimizer`` that wait for it
+OPTIMIZER_NOT_PORTED = {"state_specs": "15.3"}
+#: ``launch.steps`` names; ``batch_specs`` and ``token_specs`` give the
+#: shapes and dtypes only, their PartitionSpecs wait for item 15.3
+STEPS_NAMES = ["SHAPES", "ShapeCase", "abstract_caches", "abstract_params",
+               "batch_specs", "make_decode_step", "make_prefill_step",
+               "make_train_step", "shape_applicable", "token_specs"]
+#: launcher flags the port adds to the reference's
+LAUNCH_EXTRA_FLAGS = {"train": {"--device", "--grad-accum"},
+                      "serve": {"--device"}}
+
+
+def _public(module) -> set[str]:
+    return {n for n in dir(module) if not n.startswith("_")
+            and not isinstance(getattr(module, n), type(module))}
+
+
+def test_torch_models_holds_the_training_names():
+    """Every public name of ``repro.models`` is in ``repro_torch.models``
+    (``train_loss`` now with the rest), or waits for item 15.3."""
+    import repro.models
+    import repro_torch.models
+    theirs = _public(repro.models) - {"annotations"}
+    ours = _public(repro_torch.models)
+    assert "train_loss" in ours
+    assert theirs - ours == set(PART3_NOT_PORTED)
+    assert ours - theirs == {"params_from_numpy", "params_to_numpy"}
+    from repro_torch.models import model
+    assert repro_torch.models.train_loss is model.train_loss
+
+
+def test_torch_optim_is_repro_optim():
+    import repro.optim
+    import repro_torch.optim
+    assert sorted(repro_torch.optim.__all__) == sorted(
+        _public(repro.optim) - {"annotations"})
+    assert set(repro.optim.Optimizer._fields) - set(
+        repro_torch.optim.Optimizer._fields) == set(OPTIMIZER_NOT_PORTED)
+    assert set(repro_torch.optim.Optimizer._fields) < set(
+        repro.optim.Optimizer._fields)
+
+
+def test_torch_token_pipelines_mirror_the_reference():
+    import dataclasses
+
+    from repro.data import tokens as jt
+    from repro_torch.data import tokens as tt
+    for name in ("TokenPipeline", "EmbeddingPipeline"):
+        assert [f.name for f in dataclasses.fields(getattr(tt, name))] == \
+            [f.name for f in dataclasses.fields(getattr(jt, name))]
+        assert {"global_batch"} <= set(dir(getattr(tt, name)))
+    assert callable(tt.TokenPipeline.host_batch)
+
+
+def test_torch_checkpoint_manager_mirrors_the_reference():
+    """``CheckpointManager`` with the reference's methods; its restore
+    takes ``device=`` where the reference takes ``shardings=``."""
+    import inspect
+
+    import repro.checkpoint
+    import repro_torch.checkpoint
+    ours = repro_torch.checkpoint.CheckpointManager
+    theirs = repro.checkpoint.CheckpointManager
+    methods = {n for n in dir(theirs) if not n.startswith("_")}
+    assert methods == {n for n in dir(ours) if not n.startswith("_")}
+    for name in methods:
+        a = list(inspect.signature(getattr(theirs, name)).parameters)
+        b = list(inspect.signature(getattr(ours, name)).parameters)
+        assert [p.replace("shardings", "device") for p in a] == b, name
+
+
+def test_torch_launch_steps_and_launchers_mirror_the_reference():
+    """``launch.steps`` holds the reference's names; ``launch.train`` and
+    ``launch.serve`` take every flag of the reference's and
+    ``LAUNCH_EXTRA_FLAGS``."""
+    import pathlib
+    import re
+
+    from repro.launch import steps as jsteps
+    from repro_torch.launch import serve, steps, train
+    assert sorted(n for n in STEPS_NAMES if hasattr(steps, n)) == STEPS_NAMES
+    assert set(STEPS_NAMES) <= _public(jsteps)
+    src = pathlib.Path(jsteps.__file__).parent
+    for name, module in (("train", train), ("serve", serve)):
+        flags = set(re.findall(r'add_argument\("(--[a-z-]+)"',
+                               (src / f"{name}.py").read_text()))
+        ours = {a for action in module.build_parser()._actions
+                for a in action.option_strings if a.startswith("--")}
+        assert ours - {"--help"} == flags | LAUNCH_EXTRA_FLAGS[name], name

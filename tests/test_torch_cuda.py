@@ -1015,3 +1015,72 @@ def test_baselines_on_card_launch_the_kernels(cuda_device):
     plain = tb._kmodes_iterate(codes.cpu(), codes[idx].cpu(), 4)
     for name in ("labels", "centers", "center_valid", "dists"):
         assert torch.equal(getattr(got, name).cpu(), getattr(plain, name))
+
+
+# ---------------------------------------------------------------------------
+# training: the kernels are forward only; the train step on the card
+# ---------------------------------------------------------------------------
+
+def test_flash_kernels_refuse_inputs_that_require_grad(cuda_device):
+    """Every flash entry a model forward reaches raises on an input that
+    requires grad while grad mode is on (its output would be cut off from
+    the graph), and runs under ``torch.no_grad()``."""
+    from repro_torch.kernels import flash_attention as tfa
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q = torch.randn((1, 4, 16, 32), generator=gen, device=cuda_device)
+    k, v = (torch.randn((1, 2, 16, 32), generator=gen, device=cuda_device)
+            for _ in range(2))
+    lm = torch.zeros((1, 2, 16), device=cuda_device)
+    for args, fn in (((q, k, v), tops.flash_attention),
+                     ((q, k, v), tfa.flash_attention),
+                     ((q, k, v, lm), tfa.flash_centroid_attention)):
+        before = tfa.flash_attention.launches
+        with pytest.raises(RuntimeError, match="forward only"):
+            fn(args[0].clone().requires_grad_(), *args[1:])
+        assert tfa.flash_attention.launches == before
+        with torch.no_grad():
+            fn(args[0].clone().requires_grad_(), *args[1:])
+    c = torch.randn((2, 16, 32), device=cuda_device, requires_grad=True)
+    with pytest.raises(RuntimeError, match="forward only"):
+        tfa.flash_centroid_decode(q[:, :, :1].transpose(1, 2), c, c.detach(),
+                                  torch.ones((2, 16), device=cuda_device),
+                                  torch.ones((2, 16), dtype=torch.bool,
+                                             device=cuda_device))
+
+
+def test_train_step_on_card_matches_cpu(cuda_device):
+    """One AdamW step of a float32 smoke model on the card against the
+    same step on the CPU (float32 products in full float32, ``forward``
+    turns TF32 off): loss and grad norm within 1e-4 relative; the updated
+    parameters within 1e-3 lr on average, at most 1e-3 of the elements
+    more than lr / 100 apart and none more than 2 lr (AdamW's step is
+    about ±lr wherever a gradient is well above eps, and where one is as
+    small as eps the two devices' steps may differ by their sizes;
+    ``tests/test_torch_train.py``)."""
+    import dataclasses
+
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as tm
+    from repro_torch.optim import adamw
+    cfg = dataclasses.replace(rt.get_arch("qwen3_0_6b", smoke=True),
+                              dtype="float32")
+    cpu = tm.init_params(cfg, 0, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    batch = {k: torch.randint(0, cfg.vocab_size, (2, 32), generator=gen)
+             for k in ("inputs", "labels")}
+    opt = adamw(1e-3)
+    step = make_train_step(cfg, opt, grad_accum=2)
+    out_c = step(cpu, opt.init(cpu), 0, batch)
+    card = _to(cpu, cuda_device)
+    out_g = step(card, opt.init(card), 0,
+                 {k: v.to(cuda_device) for k, v in batch.items()})
+    for name in ("loss", "grad_norm"):
+        assert float(out_g[3][name]) == pytest.approx(
+            float(out_c[3][name]), rel=1e-4)
+    far = total = 0
+    for got, want in zip(tm.leaves(out_g[0]), tm.leaves(out_c[0])):
+        err = (got.cpu() - want).abs()
+        assert float(err.max()) <= 2e-3 and float(err.mean()) <= 1e-6
+        far += int((err > 1e-5).sum())
+        total += err.numel()
+    assert far <= 1e-3 * total
