@@ -17,7 +17,12 @@ and read just after:
   shaped after the UCI URL Reputation set (2,396,130 sets of 116 items
   from 3,231,961 features), 16-bit packed Hamming kernel;
 
-the SILK bucket MinHash kernel on all three. Then the multi-device paths,
+the SILK bucket MinHash kernel on all three. Phase 3 holds that kernel to
+its plain version on every layout of ``minhash_buckets.MINHASH_CASES``
+and on a code-space-shaped CSR of 40,000,000 mostly empty segments with
+buckets of 10,000-60,000 ids; phases 7 and 8 record the SILK inputs of
+the hetero and sparse fits and print their segment sizes and the
+kernel's times there beside its bound. Then the multi-device paths,
 on a one-rank NCCL process group started in this process (a card runs one
 rank; more ranks are shown by the gloo tests on the CPU):
 
@@ -472,6 +477,120 @@ def bound(nbytes, op_times):
     t_bytes, t_ops = nbytes / PEAK_BYTES, max(op_times)
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
         else "operations"
+
+
+#: the segment-size classes a MinHash input is binned by: (label, least,
+#: most ids; None: no most)
+MH_SIZE_BINS = (("0", 0, 0), ("1", 1, 1), ("2-8", 2, 8), ("9-32", 9, 32),
+                ("33-1,024", 33, 1024), ("> 1,024", 1025, None))
+#: the device kernels of one ``minhash_segments`` call: the kernel's own,
+#: and the fill that zeroes the lane route's work list
+MH_KERNELS = ("minhash", "FillFunctor")
+
+
+def minhash_bound(ids, offsets, keys, int_rate):
+    """(bound ms, by) of one ``minhash_segments`` call: the ids its
+    segments cover and the offsets read once (4 bytes each), the keys, the
+    signatures written once as the int64 carrier (8 bytes); 10 integer
+    operations a hash (a multiply-add, three xor-shifts, two multiplies
+    and a min), K hashes an id, at the 32-bit integer rate."""
+    covered = int(offsets[-1] - offsets[0])
+    segs = offsets.numel() - 1
+    return bound(4.0 * (covered + offsets.numel() + keys.numel()) + 8.0 * segs,
+                 [covered * keys.shape[0] * 10 / int_rate])
+
+
+def mh_sizes(offsets):
+    """One line on a MinHash input's segments: S, the ids P they cover,
+    the empty share, how many fall in each of ``MH_SIZE_BINS``, and the
+    largest."""
+    sizes = offsets[1:] - offsets[:-1]
+    S, P = sizes.numel(), int(offsets[-1] - offsets[0])
+    hist = {label: int(((sizes >= lo) & (sizes <= (hi if hi is not None
+                                                   else sizes.max()))).sum())
+            for label, lo, hi in MH_SIZE_BINS}
+    return (f"S {S:,}, P {P:,}, empty share {hist['0'] / max(S, 1):.4f}, "
+            f"segments by ids {hist}, largest {int(sizes.max()):,}")
+
+
+def record_minhash(fit):
+    """Call ``fit()`` with the first (ids, offsets, keys) that SILK hands
+    to ``ops.minhash_segments`` recorded (the seeding rounds share ids and
+    offsets). Returns (what ``fit()`` returns, the recorded arguments)."""
+    from repro_torch.core import silk
+    seen = []
+    real = silk.kops.minhash_segments
+
+    def spy(*args):
+        if not seen:
+            seen.append(args)
+        return real(*args)
+    silk.kops.minhash_segments = spy
+    try:
+        out = fit()
+    finally:
+        silk.kops.minhash_segments = real
+    if not seen:
+        raise AssertionError("the fit handed SILK's MinHash nothing")
+    return out, seen[0]
+
+
+def minhash_at(what, args, int_rate, card):
+    """Row 5 at one input: its segments (``mh_sizes``), the kernel held bit
+    for bit to its plain version, its time back to back and its device
+    time alone beside its bound. Launches here are not the main path's:
+    call it after a path's counts were read. Returns (ms, device ms,
+    bound ms)."""
+    from repro_torch.kernels import minhash_buckets as mh
+    from repro_torch.kernels import ref
+    ids, offsets, keys = args
+    print(f"  MinHash input of {what}: {mh_sizes(offsets)}; "
+          f"{'a lane' if mh.lane_layout(ids.numel(), offsets.numel() - 1) else 'a warp'}"
+          " a segment")
+    if not torch.equal(mh.minhash_segments(*args),
+                       ref.minhash_segments_ref(*args)):
+        raise AssertionError(f"MinHash differs from plain at {what}'s input")
+    ms = cuda_ms(lambda: mh.minhash_segments(*args), 20)
+    dev_ms = device_ms(lambda: mh.minhash_segments(*args), 10, MH_KERNELS)
+    b, by = minhash_bound(ids, offsets, keys, int_rate)
+    print(f"  minhash_segments at {what}'s input, K={keys.shape[0]}: "
+          f"bit-exact vs plain; {ms:.4f} ms back to back, device {dev_ms:.4f}"
+          f" ms, bound {b:.4f} ms ({by}): {b / dev_ms:.1%} of it by device "
+          f"time, {card}")
+    return ms, dev_ms, b
+
+
+def code_space_layout(gen, tables=20, n=2_000_000):
+    """(ids, offsets) shaped like the code-space fits' SILK input:
+    ``tables`` tables of n buckets over n ids each (tables·n segments).
+    Each table's ids fill its first 40,000 buckets, sized like u³·200 (u
+    uniform: mostly small, a fifth empty), with 8 buckets of 10,000-60,000
+    ids among them and segments at the kernel's thresholds first; ids
+    past n are cut, ids short of it go to singletons; the tail is empty."""
+    from repro_torch.kernels import minhash_buckets as mh
+    dev = gen.device
+    head = 40_000
+    T, C = mh.SHORT_MAX, mh.CHUNK
+    edge = torch.tensor([T - 1, T, T + 1, C - 1, C, C + 1, 2 * C, 2 * C + 1],
+                        device=dev)
+    raw = (torch.rand((tables, head), generator=gen, device=dev) ** 3
+           * 200).long()
+    raw[:, :edge.numel()] = edge
+    big = torch.randint(edge.numel(), head, (tables, 8), generator=gen,
+                        device=dev)
+    raw.scatter_(1, big, torch.randint(10_000, 60_000, (tables, 8),
+                                       generator=gen, device=dev))
+    ends = raw.cumsum(1).clamp(max=n)
+    sizes = torch.zeros((tables, n), dtype=torch.int64, device=dev)
+    sizes[:, :head] = torch.diff(ends, dim=1, prepend=ends.new_zeros(
+        (tables, 1)))
+    rest = n - ends[:, -1:]
+    pos = torch.arange(n, device=dev)[None, :]
+    sizes += ((pos >= head) & (pos < head + rest)).long()
+    offsets = torch.cat([sizes.new_zeros(1), sizes.reshape(-1).cumsum(0)])
+    ids = torch.randint(0, n, (tables * n,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    return ids, offsets.to(torch.int32)
 
 
 def reset_launches(*kernels):
@@ -3284,7 +3403,7 @@ def main():
 
     phase("3 MinHash kernel vs plain (bit-exact)")
 
-    def keys_for(K):
+    def keys_for(K, gen=gen):
         k = torch.randint(0, 1 << 32, (K, 2), generator=gen, device=dev)
         k[:, 0] |= 1
         return k
@@ -3307,6 +3426,32 @@ def main():
                        ref.minhash_segments_ref(ids, offsets, keys)):
         raise AssertionError("MinHash differs on ragged CSR segments")
     print("  ragged CSR, 300 segments (60 empty): bit-exact")
+    # the layouts below draw from generators of their own, so that the
+    # main paths' data stay what they were
+    rng = np.random.default_rng(0)
+    mgen = torch.Generator(device=dev).manual_seed(0)
+    for case in mh.MINHASH_CASES:
+        for K in (1, 3, 8):
+            ids, offsets = (torch.from_numpy(a).to(dev)
+                            for a in mh.minhash_case(case, rng))
+            keys = keys_for(K, mgen)
+            if not torch.equal(mh.minhash_segments(ids, offsets, keys),
+                               ref.minhash_segments_ref(ids, offsets, keys)):
+                raise AssertionError(f"MinHash differs on '{case}', K={K}")
+    print(f"  the layouts {list(mh.MINHASH_CASES)} at K = 1, 3, 8 (short "
+          f"segments up to {mh.SHORT_MAX} ids, jobs of {mh.CHUNK}): "
+          "bit-exact")
+    ids, offsets = code_space_layout(mgen)
+    keys = keys_for(3, mgen)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")     # the wrapper reads nothing
+    try:
+        mh.minhash_segments(ids, offsets, keys)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    minhash_at("the code-space layout (20 tables x 2,000,000 buckets)",
+               (ids, offsets, keys), int_rate, card)
+    del ids, offsets
     cfg = rt.GeekConfig(pair_cap=1 << 21)
     S, bsz = cfg.m * cfg.t, N_FIT // cfg.t          # 2560 x 15625
     ids = torch.randint(0, N_FIT, (S * bsz,), generator=gen, device=dev,
@@ -3321,15 +3466,12 @@ def main():
     mh_ms = cuda_ms(lambda: mh.minhash_segments(ids, offsets, keys), 50)
     mh_plain_ms = cuda_ms(lambda: ref.minhash_segments_ref(ids, offsets,
                                                            keys), 3)
-    mh_bytes = ids.numel() * 4 + offsets.numel() * 4 + keys.numel() * 4 + S * 4
-    # 10 integer operations per hash: a multiply-add, three xor-shifts
-    # (shift, xor), two multiplies and a min, K hashes per id; priced at
-    # the 32-bit integer rate
-    mh_ops = ids.numel() * cfg.silk_k * 10
-    mh_bound, mh_by = bound(mh_bytes, [mh_ops / int_rate])
+    mh_dev_ms = device_ms(lambda: mh.minhash_segments(ids, offsets, keys),
+                          10, MH_KERNELS)
+    mh_bound, mh_by = minhash_bound(ids, offsets, keys, int_rate)
     print(f"  ({S} segments x {bsz} ids, K={cfg.silk_k}): bit-exact; kernel "
-          f"{mh_ms:.4f} ms, plain {mh_plain_ms:.3f} ms, bound "
-          f"{mh_bound:.4f} ms ({mh_by}: {mh_bytes / 1e6:.1f} MB)")
+          f"{mh_ms:.4f} ms (device {mh_dev_ms:.4f}), plain {mh_plain_ms:.3f} "
+          f"ms, bound {mh_bound:.4f} ms ({mh_by})")
     del ids, offsets, sig_k, sig_p
 
     # a one-rank NCCL group for the multi-device paths: a FileStore in a
@@ -3619,14 +3761,18 @@ def run_paths(rt, dev, gen, card, int_rate, popc_rate, data, x_fit, x_new,
     h = geonames_like(gen, n=N_HET + N_FRESH, k=K_HET)
     het_fit = rt.HeteroData(h.x_num[:N_HET], h.x_cat[:N_HET])
     het_est = rt.GEEK(het_cfg)
-    het_model, het_launch, het_fit_s = code_path(
-        all_kernels, "hetero", het_est, het_fit,
-        rt.HeteroData(h.x_num[N_HET:], h.x_cat[N_HET:]),
-        h.true_labels[:N_HET], h.true_labels[N_HET:], K_HET,
-        dh.distance_argmin_hamming)
+    (het_model, het_launch, het_fit_s), het_mh = record_minhash(
+        lambda: code_path(
+            all_kernels, "hetero", het_est, het_fit,
+            rt.HeteroData(h.x_num[N_HET:], h.x_cat[N_HET:]),
+            h.true_labels[:N_HET], h.true_labels[N_HET:], K_HET,
+            dh.distance_argmin_hamming))
     het = kept(het_model, het_est.result_, het_cfg, rt.HeteroData, het_fit_s,
                (h.x_num[:N_HET], h.x_cat[:N_HET]),
                (h.x_num[N_HET:], h.x_cat[N_HET:]))
+    # row 5 at the inputs the fit gave it (after the path's counts)
+    minhash_at("the hetero fit", het_mh, int_rate, card)
+    del het_mh
     # the equality kernel at the path's own inputs: the coded fit rows and
     # the fitted modes (k* of k_max valid: the work the data needs)
     codes = het_model.encode(h.x_num[:N_HET], h.x_cat[:N_HET])
@@ -3671,14 +3817,17 @@ def run_paths(rt, dev, gen, card, int_rate, popc_rate, data, x_fit, x_new,
     u = url_like(gen, n=N_URL + N_FRESH, k=K_URL, nnz=NNZ_URL, universe=U_URL)
     url_fit = rt.SparseData(u.sets[:N_URL], u.mask[:N_URL])
     url_est = rt.GEEK(url_cfg)
-    url_model, url_launch, url_fit_s = code_path(
-        all_kernels, "sparse", url_est, url_fit,
-        rt.SparseData(u.sets[N_URL:], u.mask[N_URL:]),
-        u.true_labels[:N_URL], u.true_labels[N_URL:], K_URL,
-        dh.distance_argmin_hamming_packed)
+    (url_model, url_launch, url_fit_s), url_mh = record_minhash(
+        lambda: code_path(
+            all_kernels, "sparse", url_est, url_fit,
+            rt.SparseData(u.sets[N_URL:], u.mask[N_URL:]),
+            u.true_labels[:N_URL], u.true_labels[N_URL:], K_URL,
+            dh.distance_argmin_hamming_packed))
     url = kept(url_model, url_est.result_, url_cfg, rt.SparseData, url_fit_s,
                (u.sets[:N_URL], u.mask[:N_URL]),
                (u.sets[N_URL:], u.mask[N_URL:]))
+    minhash_at("the sparse fit", url_mh, int_rate, card)
+    del url_mh
     # the packed kernel at the path's own inputs: the fit rows' packed DOPH
     # codes (int32 words, as predict packs them) and the fitted modes
     bits, d_ = url_model.code_bits, url_model.d

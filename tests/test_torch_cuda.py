@@ -64,6 +64,34 @@ def test_minhash_kernel_ragged_csr_bit_exact(cuda_device):
     np.testing.assert_array_equal(u32(got), u32(want))
 
 
+@pytest.mark.parametrize("K", [1, 3, 8])
+@pytest.mark.parametrize("case", tmh.MINHASH_CASES)
+def test_minhash_kernel_on_every_layout(cuda_device, case, K):
+    """Both routes (a warp a segment; a lane a segment with the longer
+    ones on the device work list) at their thresholds, bit for bit, one
+    launch a call, the int64 carrier written by the kernel, and no host
+    synchronization in the wrapper."""
+    rng = np.random.default_rng([K, len(case)])
+    ids, offsets = tmh.minhash_case(case, rng)
+    keys = _keys(rng, K)
+    args = (torch.from_numpy(ids).to(cuda_device),
+            torch.from_numpy(offsets).to(cuda_device), keys.to(cuda_device))
+    torch.cuda.synchronize()
+    before = tmh.minhash_segments.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tmh.minhash_segments(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert tmh.minhash_segments.launches == before + 1
+    assert got.dtype == torch.int64 and got.shape == (offsets.size - 1,)
+    want = tops.minhash_segments(torch.from_numpy(ids),
+                                 torch.from_numpy(offsets), keys)
+    assert torch.equal(got.cpu(), want)
+    # the same call again: the work list starts empty each time
+    assert torch.equal(tmh.minhash_segments(*args).cpu(), want)
+
+
 @pytest.mark.parametrize("n,k,d", L2_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_l2_kernel_matches_plain(cuda_device, n, k, d, dtype):

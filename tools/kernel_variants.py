@@ -2,7 +2,8 @@
 """What holds a hand-written kernel back: variants of its source, timed.
 
     python tools/kernel_variants.py
-        [--kernel flash|l2|acc|equality|packed|all] [--against DIR]
+        [--kernel flash|l2|acc|equality|packed|minhash|all]
+        [--against DIR]
 
 Each variant is the committed source (``src/repro_torch/kernels/csrc``)
 with one string edit, compiled by ``nvcc`` with the build's own flags
@@ -77,6 +78,26 @@ inputs:
   kernel at 16 and 4 bits run beside the committed ones (other,
   committed, committed, other), held bit for bit.
 
+- ``minhash``: ``minhash_segments`` at the main paths' inputs: the dense
+  fits' even partition (2,560 segments × 15,625 ids), the LM cell's
+  per-head fits (512 × 64), the SILK inputs of a hetero fit (2,000,000 ×
+  (5 + 4)) and of a sparse fit (2,396,130 sets × 116), recorded from
+  fits run here on data of ``chip_smoke.py``'s shapes, and its synthetic
+  code-space layout (``chip_smoke.code_space_layout``); each input's
+  segment sizes are printed. Variants of the source: 1, 2 or 8 segments
+  a lane instead of 4, 1 or 4 ids a short segment loaded up front instead
+  of 2; of the wrapper's thresholds (module constants, no rebuild): 8 or
+  32 ids a lane (``SHORT_MAX``), jobs of 512, 2,048 or 4,096 ids
+  (``CHUNK``), and either route forced for every layout (a warp a
+  segment everywhere is the earlier design); the lane kernel held to 32
+  registers (8 blocks an SM), each segment's end taken from the next
+  lane's start by a shuffle, and each job loaded only when its warp
+  comes to it, not ahead. Each is held bit for bit to
+  the plain version on every input and on ``MINHASH_CASES``. With
+  ``--against DIR`` the other checkout's wrapper and kernel run beside
+  the committed ones (other, committed, committed, other) on every
+  input, held bit for bit.
+
 Variants that drop work are for timing only: they break the function.
 Needs the card and ``nvcc``; the variants' libraries go to a temporary
 directory that is removed at exit.
@@ -90,6 +111,7 @@ import subprocess
 import sys
 import tempfile
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -99,9 +121,12 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import distance_argmin as da  # noqa: E402
 from repro_torch.kernels import distance_argmin_hamming as dh  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import minhash_buckets as mh  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from chip_smoke import (COLUMN_COMPARE, EQ_KERNEL9, EQ_OPCODES,  # noqa: E402
-                        device_ms, equality_sass)
+                        MH_KERNELS, code_space_layout, cuda_ms, device_ms,
+                        equality_sass, mh_sizes, minhash_bound,
+                        record_minhash)
 
 MMA_PV = """            mma(o[2 * np], pa[part], vb[0], vb[1]);
             mma(o[2 * np + 1], pa[part], vb[2], vb[3]);
@@ -365,6 +390,50 @@ def edit(src, *change):
     return src.replace(old, new)
 
 
+#: the lane kernel at 8 blocks an SM (32 registers a thread)
+MH_OCC = ("__launch_bounds__(THREADS)\nminhash_lane_kernel(",
+          "__launch_bounds__(THREADS, 8)\nminhash_lane_kernel(")
+#: each segment's end taken from the next lane's start, one offsets load
+#: a segment
+MH_SHFL = ("""    lo[r] = hi[r] = 0;
+    if (seg < num_segments) {
+      lo[r] = __ldg(offsets + seg);
+      hi[r] = __ldg(offsets + seg + 1);
+    }
+""", """    lo[r] = seg <= num_segments ? __ldg(offsets + seg) : 0;
+    hi[r] = __shfl_down_sync(FULL, lo[r], 1);
+    if (lane == 31 && seg < num_segments) hi[r] = __ldg(offsets + seg + 1);
+    if (seg >= num_segments) hi[r] = lo[r];
+""")
+#: each job loaded only when the warp comes to it (the lane route's first form)
+MH_NO_PREFETCH = ("""  // the warp's next job is loaded while it hashes the current one
+  const int stride = gridDim.x * WARPS;
+  int j = blockIdx.x * WARPS + threadIdx.x / 32;
+  int4 next = j < jobs ? work.jobs[j] : make_int4(0, 0, 0, 0);
+  for (; j < jobs; j += stride) {
+    const int4 job = next;
+    if (j + stride < jobs) next = work.jobs[j + stride];
+""", """  for (int j = blockIdx.x * WARPS + threadIdx.x / 32; j < jobs;
+       j += gridDim.x * WARPS) {
+    const int4 job = work.jobs[j];
+""")
+
+
+def mh_segs(r):
+    return ("constexpr int LANE_SEGS = 4;", f"constexpr int LANE_SEGS = {r};")
+
+
+#: the wrapper's settings timed with the committed library: module
+#: attributes of ``minhash_buckets`` set while a setting runs
+MH_SETTINGS = {
+    **{f"SHORT_MAX {t}": {"SHORT_MAX": t} for t in (8, 32)},
+    **{f"CHUNK {c}": {"CHUNK": c} for c in (512, 2048, 4096)},
+    "a warp a segment everywhere (the earlier design, int64 written)": {
+        "lane_layout": lambda *a, **k: False},
+    "a lane a segment everywhere": {"lane_layout": lambda *a, **k: True},
+}
+
+
 def l2_tile(tm, tn, lanes, threads):
     return (L2_TILE, f"constexpr int TM = {tm};\nconstexpr int TN = {tn};\n"
             f"constexpr int LANES = {lanes};\nconstexpr int THREADS = {threads};")
@@ -432,6 +501,17 @@ VARIANTS = {
         "as committed, a tile's 32 centers unrolled": [
             ("constexpr int EQ_UNROLL = 8;", "constexpr int EQ_UNROLL = 32;")],
     }),
+    "minhash": ("minhash_buckets", {
+        "as committed (4 segments a lane, 2 ids up front)": [],
+        **{f"{r} segment(s) a lane": [mh_segs(r)] for r in (1, 2, 8)},
+        **{f"{i} id(s) up front": [
+            ("constexpr int LANE_IDS = 2;", f"constexpr int LANE_IDS = {i};")]
+           for i in (1, 4)},
+        "lane kernel at 8 blocks an SM (32 registers)": [MH_OCC],
+        "segment ends from the next lane (one offsets load a segment)": [
+            MH_SHFL],
+        "each job loaded when its turn comes": [MH_NO_PREFETCH],
+    }),
     "packed": ("distance_argmin_hamming", {
         "as committed ((a) field test, a popc a word; 1 row a thread)": [],
         "(b) per-field lanes, flushed, no popc": PK_STATE + [
@@ -487,7 +567,8 @@ def compile_all(which, tmp):
                  "l2": "l2_argmin_kernelILb1",
                  "acc": "l2_argmin_acc_kernelILb1",
                  "equality": EQ_KERNEL9,
-                 "packed": PK_KERNEL16}[key[0]]
+                 "packed": PK_KERNEL16,
+                 "minhash": "minhash_lane_kernelILi3E"}[key[0]]
         lines = out.splitlines()
         regs = next((f"{lines[i + 3].split(':')[-1].strip()}; "
                      f"{lines[i + 2].strip()}"
@@ -685,8 +766,8 @@ def beside(rows, against):
             times.setdefault(who, []).append(f"{timed(fn, match):.4f}")
         print(f"  {what}: {against} {', '.join(times['other'])} ms, "
               f"committed {', '.join(times['committed'])} ms (other, "
-              f"committed, committed, other); labels and counts "
-              f"bit-identical: {same}", flush=True)
+              f"committed, committed, other); outputs bit-identical: "
+              f"{same}", flush=True)
         if not same:
             raise AssertionError("the two checkouts' outputs differ")
 
@@ -838,18 +919,154 @@ def run_packed(libs, dev, against, tmp):
         beside(packed_beside(other, xp, cp, valid), against)
 
 
+def minhash_inputs(dev):
+    """{what: (ids, offsets, keys)} at the main paths' inputs, K = 3 (the
+    default ``silk_k``), each from a generator seeded here."""
+    import repro_torch as rt
+    from chip_smoke import (K_HET, K_URL, N_HET, N_URL, NNZ_URL,
+                            U_URL)
+    from repro_torch.data.synthetic import geonames_like, url_like
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def keys():
+        k = torch.randint(0, 1 << 32, (3, 2), generator=gen, device=dev)
+        k[:, 0] |= 1
+        return k
+
+    def even(nb, bsz, n):
+        ids = torch.randint(0, n, (nb * bsz,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        return ids, (torch.arange(nb + 1, device=dev) * bsz).int(), keys()
+
+    out = {"dense (2,560 x 15,625)": even(2560, 15625, 1_000_000),
+           "LM fits (512 x 64)": even(512, 64, 2048)}
+    h = geonames_like(gen, n=N_HET, k=K_HET)
+    est = rt.GEEK(rt.GeekConfig(pair_cap=1 << 24))
+    _, out["hetero fit"] = record_minhash(
+        lambda: est.fit(rt.HeteroData(h.x_num, h.x_cat), 0))
+    del h
+    u = url_like(gen, n=N_URL, k=K_URL, nnz=NNZ_URL, universe=U_URL)
+    est = rt.GEEK(rt.GeekConfig(pair_cap=1 << 22))
+    _, out["sparse fit"] = record_minhash(
+        lambda: est.fit(rt.SparseData(u.sets, u.mask), 0))
+    del u, est
+    out["code-space layout"] = (*code_space_layout(gen), keys())
+    torch.cuda.empty_cache()
+    return out
+
+
+def bind_minhash(mod, lib):
+    """Point the wrapper module ``mod`` at the library ``lib``."""
+    fn = ctypes.CDLL(lib).repro_minhash_segments_u32
+    fn.argtypes, fn.restype = mod._ARGTYPES, ctypes.c_int
+    mod._entry = lambda: fn
+
+
+def other_minhash(root, tmp):
+    """The MinHash wrapper of the checkout at ``root``, bound to a library
+    compiled from its own source."""
+    lib = os.path.join(tmp, "other_minhash_buckets.so")
+    src = os.path.join(root, "src", "repro_torch", "kernels", "csrc",
+                       "minhash_buckets.cu")
+    out = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", lib, src],
+                         capture_output=True, text=True)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src}:\n{out.stdout}"
+                           f"{out.stderr}")
+    spec = importlib.util.spec_from_file_location(
+        "other_minhash_buckets",
+        os.path.join(root, "src", "repro_torch", "kernels",
+                     "minhash_buckets.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    bind_minhash(mod, lib)
+    return mod
+
+
+def run_minhash(libs, dev, against, tmp):
+    inputs = minhash_inputs(dev)
+    clk_hz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.split()[0]) * 1e6
+    int_rate = 64 * torch.cuda.get_device_properties(0) \
+        .multi_processor_count * clk_hz
+    want = {}
+    for what, args in inputs.items():
+        want[what] = ref.minhash_segments_ref(*args)
+        b, by = minhash_bound(*args, int_rate)
+        print(f"{what}: {mh_sizes(args[1])}; bound {b:.4f} ms ({by})",
+              flush=True)
+    rng = np.random.default_rng(1)
+    small = []
+    for case in mh.MINHASH_CASES:
+        ids, offsets = (torch.from_numpy(a).to(dev)
+                        for a in mh.minhash_case(case, rng))
+        keys = torch.tensor([[2654435761, 12345], [40503, 777], [97, 1]],
+                            device=dev)
+        small.append(((ids, offsets, keys),
+                      ref.minhash_segments_ref(ids, offsets, keys)))
+
+    def exact(mod):
+        return all(torch.equal(mod.minhash_segments(*a), w)
+                   for a, w in small) and \
+            all(torch.equal(mod.minhash_segments(*inputs[k]), want[k])
+                for k in inputs)
+
+    print(f"minhash_segments, device ms at {' / '.join(inputs)}:")
+    entry, saved = mh._entry, {k: getattr(mh, k) for k in
+                               ("SHORT_MAX", "CHUNK", "lane_layout")}
+    runs = [(name, lib, {}) for (kernel, name), lib in libs.items()
+            if kernel == "minhash"]
+    committed = runs[0][1]
+    runs += [(name, committed, setting)
+             for name, setting in MH_SETTINGS.items()]
+    try:
+        for name, lib, setting in runs:
+            bind_minhash(mh, lib)
+            for k, v in setting.items():
+                setattr(mh, k, v)
+            ms = [timed(lambda a=a: mh.minhash_segments(*a), MH_KERNELS)
+                  for a in inputs.values()]
+            print(f"  {name}: {' / '.join(f'{t:.4f}' for t in ms)} ms; "
+                  f"bit-exact on every input and case: {exact(mh)}",
+                  flush=True)
+            for k, v in saved.items():
+                setattr(mh, k, v)
+    finally:
+        mh._entry = entry
+        for k, v in saved.items():
+            setattr(mh, k, v)
+    for what, args in inputs.items():
+        print(f"  committed at {what}: "
+              f"{cuda_ms(lambda: mh.minhash_segments(*args), 20):.4f} ms "
+              f"back to back", flush=True)
+    if against is None:
+        return
+    other = other_minhash(against, tmp)
+    beside([(f"minhash at {what}",
+             lambda a=a: (other.minhash_segments(*a),),
+             lambda a=a: (mh.minhash_segments(*a),), MH_KERNELS)
+            for what, a in inputs.items()], against)
+    for what, args in inputs.items():
+        print(f"  {against} at {what}: "
+              f"{cuda_ms(lambda: other.minhash_segments(*args), 20):.4f} ms "
+              f"back to back", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernel", choices=("flash", "l2", "acc", "equality",
-                                         "packed", "all"), default="all")
+                                         "packed", "minhash", "all"),
+                    default="all")
     ap.add_argument("--against", default=None,
                     help="another checkout whose kernels run beside the "
-                         "committed ones (--kernel acc, equality, packed)")
+                         "committed ones (--kernel acc, equality, packed, "
+                         "minhash)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_variants: needs a CUDA device", file=sys.stderr)
         return 1
-    which = ("flash", "l2", "acc", "equality", "packed") \
+    which = ("flash", "l2", "acc", "equality", "packed", "minhash") \
         if args.kernel == "all" \
         else (args.kernel,)
     dev = torch.device("cuda")
@@ -865,6 +1082,8 @@ def main():
             run_equality(libs, dev, args.against, tmp)
         if "packed" in which:
             run_packed(libs, dev, args.against, tmp)
+        if "minhash" in which:
+            run_minhash(libs, dev, args.against, tmp)
     return 0
 
 
