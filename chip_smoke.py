@@ -90,6 +90,17 @@ width (prefill of 4 x 2,048 on the flash-attention kernel, 16 tokens
 decoded), its decode logits held to a full forward's, and the
 flash-attention kernel refusing an input that requires grad.
 
+Then the trainer's mesh mode (phase 18): Qwen3-0.6B whole through
+``repro_torch.launch.train --mesh 1x1`` on the one-rank NCCL group (its
+parameters, AdamW state and batch DTensors on a (data, model) DeviceMesh,
+the step under ``activation_sharding``), two steps at phase 17's
+micro-batch shape, held to the single-card trainer from the same weights
+and batch (bit for bit or within phase 17(b)'s rule), with each mode's
+step time and peak memory; one step of each mode traced by
+``torch.profiler`` (the device's idle share, the kernels and the host's
+aten ops); and the ten full-width configs' spec trees resolved to local
+shapes on that mesh.
+
 All data is generated from a seed, not downloaded. It checks that each
 path launched its kernels, round-trips checkpoints, and reproduces the
 labels of models fitted and saved by the JAX reference
@@ -3281,6 +3292,219 @@ def train_phase(rt, dev, all_kernels, card):
     return launched, err
 
 
+# phase 18: the trainer's mesh mode, 1x1 (data, model) on the one-rank NCCL
+# group, two steps at phase 17's micro-batch shape (4 x 4,096)
+MESH_ARGV = ["--arch", "qwen3_0_6b", "--seq", "4096", "--batch", "4",
+             "--steps", "2", "--lr", "1e-3", "--warmup", "2",
+             "--log-every", "1"]
+
+
+def mesh_specs(rt):
+    """Phase 18(c): every full-width config's parameter and AdamW state
+    specs resolved to local shapes on a 1x1 (data, model) mesh: each
+    shard is its whole tensor."""
+    from repro_torch.configs import list_archs
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.launch.steps import abstract_params
+    from repro_torch.models import param_specs
+    from repro_torch.models.sharding import is_spec
+    from repro_torch.optim import adamw
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    mesh = MESH.make_test_mesh((1, 1), ("data", "model"))
+    for arch in list_archs():
+        cfg = rt.get_arch(arch)
+        specs, ap = param_specs(cfg), abstract_params(cfg)
+        local = tree_map(lambda s, t: MESH.local_shape(s, mesh, t.shape),
+                         specs, ap, is_leaf=is_spec)
+        state = adamw(1e-3).state_specs(specs, ap)
+        n_state = sum(math.prod(MESH.local_shape(s, mesh, t.shape))
+                      for k in state for s, t in zip(
+                          tree_leaves(state[k], is_leaf=is_spec),
+                          tree_leaves(ap)))
+        shapes = tree_leaves(local, is_leaf=lambda x: isinstance(x, tuple))
+        n = sum(math.prod(s) for s in shapes)
+        if n != rt.count_params(cfg) or n_state != 2 * n or any(
+                s != tuple(t.shape) for s, t in zip(shapes, tree_leaves(ap))):
+            raise AssertionError(f"{arch}: local shapes on 1x1 are not the "
+                                 "whole tensors")
+        print(f"    {arch:28s} {len(shapes):4d} leaves, {n:,} parameters and "
+              f"{n_state:,} AdamW floats local; largest "
+              f"{max(shapes, key=math.prod)}")
+
+
+def step_trace(fn, params, state, batch):
+    """Two steps of a train step ``fn`` from ``(params, state)`` on
+    ``batch``, the second traced by ``torch.profiler`` (the first is its
+    warm-up: a trace begun cold misses launches, as ``device_ms`` says).
+    Returns the traced step's span on the profiler's clock (its first
+    host event to its last kernel's end, ms), the device's busy time in
+    it (the kernels' intervals merged, ms), the device's idle share of
+    the span, the kernels launched, and the host's top-level aten ops
+    (those not inside another aten op) with their mean host time (µs).
+    ``None`` when the trace holds no kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from repro_torch.models.sharding import value
+    events = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: events.extend(p.events())
+                 ) as prof:
+        for step in range(2):
+            params, state, _, metrics = fn(params, state, step, batch)
+            float(value(metrics["loss"]))
+            torch.cuda.synchronize()
+            prof.step()
+    kernels = sorted((e.time_range.start, e.time_range.end) for e in events
+                     if e.device_type == DeviceType.CUDA)
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    if not kernels or not host:
+        return None
+    busy, end = 0.0, -math.inf
+    for a, b in kernels:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    span = max(end, max(e.time_range.end for e in host)) - min(
+        e.time_range.start for e in host)
+    ops = [e for e in host if e.name.startswith("aten::") and not (
+        e.cpu_parent is not None and e.cpu_parent.name.startswith("aten::"))]
+    return {"span_ms": span / 1e3, "busy_ms": busy / 1e3,
+            "idle": 1 - busy / span, "kernels": len(kernels),
+            "host_ops": len(ops),
+            "host_us_per_op": sum(e.cpu_time_total for e in ops)
+            / max(len(ops), 1)}
+
+
+def mesh_trace(cfg, args, weights, dev):
+    """Phase 18(b): one traced step of the single-card step and of the
+    mesh step (``step_trace``) from the same weights and batch, each mode
+    in turn."""
+    from repro_torch.launch import train as TR
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw, warmup_cosine
+    opt = adamw(warmup_cosine(args.lr, args.warmup, args.steps))
+    batch = {k: v.to(dev) for k, v in TR.make_pipeline(
+        cfg, args.batch, args.seq, args.seed).global_batch(0).items()}
+    mesh = TR.build_mesh("1x1", dev)
+    out = {}
+    for name in ("single card", "mesh 1x1"):
+        params = tree_map(lambda t: t.clone(), weights)
+        state = opt.init(params)
+        if name == "single card":
+            fn, b = make_train_step(cfg, opt), batch
+        else:
+            params, state = TR.distribute_state(params, state, cfg, opt, mesh)
+            fn, b = TR.make_mesh_step(cfg, opt, mesh), TR.distribute_batch(
+                batch, mesh)
+        torch.cuda.synchronize()
+        out[name] = step_trace(fn, params, state, b)
+        del params, state, fn, b
+        torch.cuda.empty_cache()
+        t = out[name]
+        if t is None:
+            print(f"  18b {name}: the trace held no kernel; device idle "
+                  "share not measured")
+            continue
+        print(f"  18b {name}: traced step span {t['span_ms']:.1f} ms, "
+              f"device busy {t['busy_ms']:.1f} ms, idle share "
+              f"{t['idle']:.3f}; {t['kernels']:,} kernels, "
+              f"{t['host_ops']:,} top-level aten ops on the host, "
+              f"{t['host_us_per_op']:.1f} us each on average")
+    return out
+
+
+def mesh_phase(rt, dev, all_kernels, card):
+    """Phase 18: the trainer's mesh mode at full width on a 1x1 (data,
+    model) mesh of the one-rank NCCL group against the single-card
+    trainer, from the same weights and batch: the losses, grad norms and
+    parameters bit for bit, or else within phase 17(b)'s rule (loss and
+    grad norm within 1e-5 relative or 4 times their own sensitivity, from
+    two single-card runs on weights moved by about one bf16 ulp;
+    parameters as ``adamw_close``); each mode's step time and peak
+    memory; one traced step of each (``mesh_trace``); then
+    ``mesh_specs``. No kernel launches, of rows 1-7 or of the flash and
+    head wrappers (the training path has none)."""
+    from repro_torch.kernels import distance_argmin as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train as TR
+    from repro_torch.models.sharding import value
+    from repro_torch.utils.tree import tree_leaves
+    t0 = time.perf_counter()
+    args = TR.build_parser().parse_args(MESH_ARGV)
+    cfg = TR.get_arch(args.arch, smoke=args.smoke)
+    phase(f"18 mesh-mode training: {cfg.name} whole, --mesh 1x1 (data, "
+          f"model) on the one-rank NCCL group vs the single card, batch "
+          f"{args.batch} x seq {args.seq}, {args.steps} AdamW steps")
+    weights = TR.init_params(cfg, args.seed, device=dev)
+    kernels = all_kernels + (fa.flash_attention, fa.flash_centroid_attention,
+                             fa.flash_centroid_decode,
+                             da.distance_argmin_l2_heads, da.l2_absorb_heads)
+    reset_launches(*kernels)
+
+    def run(extra, params):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out = TR.train(TR.build_parser().parse_args(MESH_ARGV + extra),
+                       params=params, log=lambda s: print(f"    {s}"))
+        torch.cuda.synchronize()
+        return {"losses": out["losses"], "grad_norms": out["grad_norms"],
+                "params": [value(t).cpu() for t in tree_leaves(out["params"])],
+                "step_seconds": out["step_seconds"],
+                "peak": torch.cuda.max_memory_allocated()}
+
+    single = run([], weights)
+    mesh = run(["--mesh", "1x1"], weights)
+    same = (mesh["losses"] == single["losses"]
+            and mesh["grad_norms"] == single["grad_norms"]
+            and all(torch.equal(a, b) for a, b in zip(mesh["params"],
+                                                      single["params"])))
+    if not same:
+        gen = torch.Generator(device=dev).manual_seed(1)
+        sens = {"losses": 0.0, "grad_norms": 0.0}
+        for _ in range(2):
+            moved = tree_map(lambda t: (t.float() * (1 + 2.0**-8 * torch.randn(
+                t.shape, generator=gen, device=dev))).to(t.dtype), weights)
+            m = run([], moved)
+            for k in sens:
+                sens[k] = max(sens[k], max(abs(a - b) / abs(b) for a, b in
+                                           zip(m[k], single[k])))
+            del m, moved
+        for k in sens:
+            tol = max(1e-5, 4 * sens[k])
+            for a, b in zip(mesh[k], single[k]):
+                if not (math.isfinite(a) and abs(a - b) <= tol * abs(b)):
+                    raise AssertionError(f"mesh {k} {mesh[k]} against "
+                                         f"{single[k]}, tolerance {tol}")
+        adamw_close(mesh["params"], single["params"], args.lr, args.steps,
+                    "mesh-mode parameters")
+    if not all(math.isfinite(v) for v in mesh["losses"]):
+        raise AssertionError(f"non-finite losses {mesh['losses']}")
+    if any(k.launches for k in kernels):
+        raise AssertionError("the mesh-mode path launched a kernel: "
+                             f"{ {k.__name__: k.launches for k in kernels} }")
+    tokens = args.batch * args.seq
+    for name, r in (("single card", single), ("mesh 1x1", mesh)):
+        ms = [round(s * 1e3, 1) for s in r["step_seconds"]]
+        print(f"  {name:11s}: losses {r['losses']}, grad norms "
+              f"{r['grad_norms']}; steps {ms} ms ({tokens / ms[-1] * 1e3:,.0f}"
+              f" tokens/s at the last), peak {r['peak'] / 2**30:.2f} GiB")
+    print(f"  mesh mode bit-identical to the single card: "
+          f"{'yes' if same else 'no'}; last step "
+          f"{mesh['step_seconds'][-1] / single['step_seconds'][-1]:.3f}x the "
+          f"single card's; {card}")
+    del single, mesh
+    torch.cuda.empty_cache()
+    mesh_trace(cfg, args, weights, dev)
+    del weights
+    torch.cuda.empty_cache()
+    print("  18c spec trees of the ten full-width configs, local shapes on "
+          "the 1x1 mesh:")
+    mesh_specs(rt)
+    print(f"  phase 18: {time.perf_counter() - t0:.1f} s")
+
+
 T0 = time.perf_counter()
 
 
@@ -3938,6 +4162,7 @@ def run_paths(rt, dev, gen, card, int_rate, popc_rate, data, x_fit, x_new,
     train_launch, train_err = train_phase(rt, dev, all_kernels, card)
     for k in new_paths:
         new_paths[k] += train_launch[k]
+    mesh_phase(rt, dev, all_kernels, card)
     lm_errs["flash_attention"] = max(lm_errs.get("flash_attention", 0.0),
                                      train_err)
     kernels = [

@@ -10,9 +10,9 @@ Shapes (assignment):
 
 Abstract parameters, caches and batches are tensors on the ``meta``
 device: shapes and dtypes, no storage (the reference's
-``ShapeDtypeStruct`` stand-ins). The reference's ``batch_specs`` and
-``token_specs`` also return PartitionSpecs; those wait for the sharding
-slice (ROADMAP.md, Queue 1 item 15 part 3).
+``ShapeDtypeStruct`` stand-ins); ``batch_specs`` and ``token_specs``
+return them with their logical PartitionSpecs (``models.sharding.P``),
+as the reference does.
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ import torch
 from repro_torch.models import model as MODEL
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.sharding import P
 from repro_torch.optim import Optimizer, clip_by_global_norm
 from repro_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
 
@@ -66,25 +67,30 @@ def abstract_caches(cfg: ArchConfig, batch: int, max_len: int):
 
 
 def batch_specs(cfg: ArchConfig, case: ShapeCase):
-    """The data batch's shapes and dtypes: ``{"inputs", "labels"}`` on
+    """The data batch's shapes and dtypes, ``{"inputs", "labels"}`` on
     the ``meta`` device (token ids, or bf16 embeddings for stub
-    frontends)."""
+    frontends), and their logical PartitionSpecs."""
     B, S = case.batch, case.seq
     if MODEL.has_token_embed(cfg):
         inputs = torch.empty((B, S), dtype=torch.int32, device=_META)
+        in_spec = P("dp", None)
     else:
         inputs = torch.empty((B, S, cfg.d_model), dtype=torch.bfloat16,
                              device=_META)
-    return {"inputs": inputs,
-            "labels": torch.empty((B, S), dtype=torch.int32, device=_META)}
+        in_spec = P("dp", None, None)
+    labels = torch.empty((B, S), dtype=torch.int32, device=_META)
+    return ({"inputs": inputs, "labels": labels},
+            {"inputs": in_spec, "labels": P("dp", None)})
 
 
-def token_specs(cfg: ArchConfig, batch: int) -> torch.Tensor:
-    """One decode step's input on the ``meta`` device."""
+def token_specs(cfg: ArchConfig, batch: int):
+    """One decode step's input on the ``meta`` device and its logical
+    PartitionSpec."""
     if MODEL.has_token_embed(cfg):
-        return torch.empty((batch, 1), dtype=torch.int32, device=_META)
-    return torch.empty((batch, 1, cfg.d_model), dtype=torch.bfloat16,
-                       device=_META)
+        return (torch.empty((batch, 1), dtype=torch.int32, device=_META),
+                P("dp", None))
+    return (torch.empty((batch, 1, cfg.d_model), dtype=torch.bfloat16,
+                        device=_META), P("dp", None, None))
 
 
 # ---------------------------------------------------------------------------
@@ -125,8 +131,8 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer,
             loss, parts, grads = loss_and_grads(cfg, params, batch)
         else:
             mb = next(iter(batch.values())).shape[0] // grad_accum
-            gsum = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=accum_dtype, device=p.device), params)
+            gsum = tree_map(lambda p: torch.zeros_like(
+                p, dtype=accum_dtype), params)
             lsum = torch.zeros((), dtype=torch.float32,
                                device=batch["labels"].device)
             for i in range(grad_accum):

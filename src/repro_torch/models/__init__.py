@@ -7,11 +7,13 @@ from repro_torch.models.convert import (  # noqa: F401
     params_to_numpy,
 )
 from repro_torch.models.model import (  # noqa: F401
+    cache_specs,
     count_active_params,
     count_params,
     decode_step,
     forward,
     init_params,
+    param_specs,
     prefill_step,
     train_loss,
 )

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.sharding import P
 from repro_torch.utils.device import resolve_device
 
 
@@ -107,6 +108,25 @@ def to_reference_layout(tree, cfg: ArchConfig, stack, leaf):
         if name != "layers":
             out[name] = _tree(leaf, sub)
     return out
+
+
+def _stack_spec(specs):
+    """The reference's spec of a period-stacked leaf: ``None`` (the
+    stacking axis) in front of the layers' one spec."""
+    if any(s != specs[0] for s in specs):
+        raise ValueError(f"layers of one period position differ: {specs}")
+    return P(None, *specs[0])
+
+
+def specs_to_reference_layout(specs, cfg: ArchConfig):
+    """A spec tree of the port (``param_specs``, an optimizer's
+    ``state_specs`` subtree, or ``cache_specs``' list of layers) in the
+    reference's period-stacked layout, each stacked leaf with a leading
+    ``None``."""
+    if isinstance(specs, list):
+        return to_reference_layout({"layers": specs}, cfg, _stack_spec,
+                                   None)["layers"]
+    return to_reference_layout(specs, cfg, _stack_spec, lambda s: s)
 
 
 def params_from_numpy(tree, cfg: ArchConfig, device=None):

@@ -4,8 +4,16 @@ counterpart of ``repro.models.layers``).
 
 Plain functions on tensors and dictionaries of tensors. Weights keep the
 reference's ``(in, out)`` layout, so a layer is ``x @ w`` in both
-packages. The reference's ``*_spec`` functions and ``sharding.constrain``
-wait for the sharding slice (ROADMAP.md, Queue 1 item 15 part 3).
+packages. Every ``*_init`` has a matching ``*_spec`` returning the same
+dictionary of *logical* PartitionSpecs (``sharding.P``), in the axis
+names:
+    "dp"   -> batch axes  (("pod","data") on the multi-pod mesh)
+    "fsdp" -> parameter sharding over the batch axes (ZeRO-3)
+    "tp"   -> tensor-parallel axis ("model")
+    "sp"   -> sequence dimension sharding (long-context KV)
+``launch.mesh.resolve_spec`` maps them to mesh axes. ``sharding.constrain``
+pins activations at the reference's places; with no mesh it is the
+identity.
 
 KV caches are updated in place (the reference returns new arrays): a
 decode step writes one row per layer instead of copying the cache.
@@ -15,12 +23,16 @@ graph reads at each replay (``serve.kv_cluster``'s decode step).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ArchConfig
+from repro_torch.models import sharding
+from repro_torch.models.sharding import P, constrain, local, placed, tp_size
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _NEG = -1e30
@@ -54,6 +66,10 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
 def norm_init(cfg: ArchConfig, device="cpu"):
     return {"scale": torch.ones((cfg.d_model,), dtype=dtype_of(cfg),
                                 device=device)}
+
+
+def norm_spec(cfg: ArchConfig):
+    return {"scale": P()}
 
 
 # ---------------------------------------------------------------------------
@@ -97,6 +113,30 @@ def attn_init(gen, cfg: ArchConfig, device="cpu"):
     return p
 
 
+def attn_spec(cfg: ArchConfig):
+    s = {"wq": P("fsdp", "tp"), "wk": P("fsdp", "tp"), "wv": P("fsdp", "tp"),
+         "wo": P("tp", "fsdp")}
+    if cfg.qkv_bias:
+        s |= {"bq": P("tp"), "bk": P("tp"), "bv": P("tp")}
+    if cfg.qk_norm:
+        s |= {"q_norm": P(), "k_norm": P()}
+    return s
+
+
+def attn_cache_spec(cfg: ArchConfig):
+    """KV cache sharded over batch and sequence."""
+    return {"k": P("dp", "sp", None, None), "v": P("dp", "sp", None, None)}
+
+
+def _heads(t: torch.Tensor, h: int, hd: int) -> torch.Tensor:
+    """(B, S, h·hd) -> (B, S, h, hd); under a mesh whose "model" axis does
+    not divide ``h``, gathered over it first (DTensor cannot cut a dim
+    into heads that tp does not divide, where XLA reshards)."""
+    if h % tp_size():
+        t = constrain(t, "dp", None, None)
+    return t.reshape(t.shape[0], t.shape[1], h, hd)
+
+
 def attn_qkv(p, x: torch.Tensor, cfg: ArchConfig, *, positions: torch.Tensor):
     """Project x to per-head q/k/v with bias, qk-norm and RoPE applied.
 
@@ -114,9 +154,7 @@ def attn_qkv(p, x: torch.Tensor, cfg: ArchConfig, *, positions: torch.Tensor):
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, hq, hd)
-    k = k.reshape(B, S, hkv, hd)
-    v = v.reshape(B, S, hkv, hd)
+    q, k, v = _heads(q, hq, hd), _heads(k, hkv, hd), _heads(v, hkv, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -181,6 +219,68 @@ def cache_attention_ref(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
     return o.reshape(B, S, hq, hd).to(q.dtype)
 
 
+def causal_attention(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """Causal attention of (B, S, hkv, g, hd) grouped queries over (B, S,
+    hkv, hd) keys and values: bf16 operands, float32 products and sums
+    (exact products of bf16 values), as the reference's
+    preferred_element_type=f32, float32 statistics, the weights rounded to
+    ``dtype``. Returns (B, S, hkv, g, hd) float32."""
+    S, hd = qg.shape[1], qg.shape[-1]
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(torch.float32),
+                     k.to(torch.float32)) * hd ** -0.5
+    causal = torch.tril(torch.ones((S, S), dtype=torch.bool,
+                                   device=qg.device))
+    s = torch.where(causal, s, _NEG)
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bhgqk,bkhd->bqhgd", w.to(dtype).to(torch.float32),
+                        v.to(torch.float32))
+
+
+class _SumOver(torch.autograd.Function):
+    """A tensor summed over the ranks of ``group``, its gradient summed
+    over them too: every rank's copy of the sum feeds only that rank's
+    work (the context-parallel softmax's denominator)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+        ctx.group = group
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        import torch.distributed as dist
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def context_attention(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      dtype: torch.dtype, *, group, rank: int) -> torch.Tensor:
+    """``causal_attention`` over one block of the keys, the reference's
+    key-sequence mode (context parallel): (B, S, hkv, g, hd) queries
+    whole, (B, S/tp, hkv, hd) keys and values from row ``rank · S/tp``.
+    The softmax's max and denominator are reduced over ``group``, the
+    ranks that hold the other blocks. Returns this rank's share of the
+    (B, S, hkv, g, hd) float32 output, to be summed over ``group``."""
+    import torch.distributed as dist
+    S, sk, hd = qg.shape[1], k.shape[1], qg.shape[-1]
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(torch.float32),
+                     k.to(torch.float32)) * hd ** -0.5
+    keys = rank * sk + torch.arange(sk, device=qg.device)
+    s = torch.where(keys <= torch.arange(S, device=qg.device)[:, None], s,
+                    _NEG)
+    m = s.detach().amax(-1, keepdim=True)  # any shift: no gradient
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    e = torch.exp(s - m)
+    w = e / _SumOver.apply(e.sum(-1, keepdim=True), group)
+    return torch.einsum("bhgqk,bkhd->bqhgd", w.to(dtype).to(torch.float32),
+                        v.to(torch.float32))
+
+
 def attn_apply(p, x: torch.Tensor, cfg: ArchConfig, *, positions: torch.Tensor,
                cache: dict | None = None, cache_len: int | None = None,
                return_kv: bool = False):
@@ -194,18 +294,38 @@ def attn_apply(p, x: torch.Tensor, cfg: ArchConfig, *, positions: torch.Tensor,
     hq, hkv = cfg.num_heads, cfg.num_kv_heads
     q, k, v = attn_qkv(p, x, cfg, positions=positions)
     if cache is None:
-        # bf16 operands, float32 products and sums (exact products of
-        # bf16 values), as the reference's preferred_element_type=f32
-        qg = q.reshape(B, S, hkv, hq // hkv, hd)
-        s = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(torch.float32),
-                         k.to(torch.float32)) * hd ** -0.5
-        causal = torch.tril(torch.ones((S, S), dtype=torch.bool,
-                                       device=x.device))
-        s = torch.where(causal, s, _NEG)
-        w = torch.softmax(s, dim=-1)
-        o = torch.einsum("bhgqk,bkhd->bqhgd", w.to(x.dtype).to(torch.float32),
-                         v.to(torch.float32))
-        o = o.reshape(B, S, hq * hd).to(x.dtype)
+        # score sharding under a mesh, the reference's three modes: kv
+        # heads when tp divides them, else q groups, else the key sequence
+        # (context parallel: ``context_attention``). The attention runs on
+        # each rank's shards (``local``): DTensor has no rule for the
+        # einsums' flattening of two cut dims. ``shared`` names the
+        # inputs whose gradient each rank holds only its share of: k and
+        # v's when the q groups are cut, q's when the keys are.
+        g, tp = hq // hkv, tp_size()
+        core = functools.partial(causal_attention, dtype=x.dtype)
+        if hkv % tp == 0:
+            qm, km, shared = ("dp", None, "tp", None, None), \
+                ("dp", None, "tp", None), ""
+        elif g % tp == 0:
+            qm, km, shared = ("dp", None, None, "tp", None), \
+                ("dp", None, None, None), "kv"
+        else:
+            qm, km, shared = ("dp", None, None, None, None), \
+                ("dp", "tp", None, None), "q"
+            core = functools.partial(context_attention, dtype=x.dtype,
+                                     group=sharding.tp_group(),
+                                     rank=sharding.tp_rank())
+        qp, kp = placed(*qm), placed(*km)
+        qs = placed(*qm, summed=("tp",)) if shared == "q" else qp
+        ks = placed(*km, summed=("tp",)) if shared == "kv" else kp
+        if hkv % tp:    # DTensor cannot cut the heads into hkv groups
+            q = constrain(q, "dp", None, None, None)
+        o = local(core, q.reshape(B, S, hkv, g, hd), k, v, out=qs,
+                  ins=(qp, kp, kp), grads=(qs, ks, ks))
+        # the heads gathered (the key blocks' shares summed) before they
+        # are flattened
+        o = constrain(o, "dp", None, None, None, None)
+        o = constrain(o.reshape(B, S, hq * hd).to(x.dtype), "dp", None, None)
         new_cache = {"k": k, "v": v} if return_kv else None
     else:
         cache_write(cache, k, v, cache_len)
@@ -239,11 +359,21 @@ def mlp_init(gen, cfg: ArchConfig, device="cpu"):
     return p
 
 
+def mlp_spec(cfg: ArchConfig):
+    s = {"up": P("fsdp", "tp"), "down": P("tp", "fsdp")}
+    if cfg.mlp_variant == "swiglu":
+        s["gate"] = P("fsdp", "tp")
+    return s
+
+
 def mlp_apply(p, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU when ``p`` has a gate, else GELU (tanh form, JAX's default)."""
     if "gate" in p:
-        return (F.silu(x @ p["gate"]) * (x @ p["up"])) @ p["down"]
-    return F.gelu(x @ p["up"], approximate="tanh") @ p["down"]
+        h = constrain(F.silu(x @ p["gate"]) * (x @ p["up"]), "dp", None, "tp")
+    else:
+        h = constrain(F.gelu(x @ p["up"], approximate="tanh"),
+                      "dp", None, "tp")
+    return constrain(h @ p["down"], "dp", None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -255,18 +385,38 @@ def embed_init(gen, cfg: ArchConfig, device="cpu"):
                         cfg.d_model ** -0.5, dtype_of(cfg), device)}
 
 
+def embed_spec(cfg: ArchConfig):
+    return {"w": P("tp", "fsdp")}
+
+
 def head_init(gen, cfg: ArchConfig, device="cpu"):
     return {"w": normal(gen, (cfg.d_model, cfg.padded_vocab),
                         cfg.d_model ** -0.5, dtype_of(cfg), device)}
 
 
-def _chunk_ce(xc: torch.Tensor, w_head: torch.Tensor,
-              lc: torch.Tensor) -> torch.Tensor:
-    """Token CE of one chunk: (B, c, d) hidden, (B, c) labels -> (B, c)."""
-    logits = (xc @ w_head).to(torch.float32)                  # (B, c, V)
+def head_spec(cfg: ArchConfig):
+    return {"w": P("fsdp", "tp")}
+
+
+def _token_ce(logits: torch.Tensor, lc: torch.Tensor) -> torch.Tensor:
+    """(B, c, V) float32 logits, (B, c) labels -> (B, c): logsumexp minus
+    the gold logit."""
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, lc[..., None].to(torch.long))[..., 0]
     return logz - gold
+
+
+def _chunk_ce(xc: torch.Tensor, w_head: torch.Tensor,
+              lc: torch.Tensor) -> torch.Tensor:
+    """Token CE of one chunk: (B, c, d) hidden, (B, c) labels -> (B, c).
+    Under a mesh the logits come out vocab-sharded, as the reference pins
+    them; the gold logit's gather has no DTensor rule over a cut dim, so
+    the logsumexp and the gather run on each rank's rows with the
+    vocabulary gathered (``local``)."""
+    logits = constrain((xc @ w_head).to(torch.float32),
+                       "dp", None, "tp")                      # (B, c, V)
+    return local(_token_ce, logits, lc, out=placed("dp", None),
+                 ins=(placed("dp", None, None), placed("dp", None)))
 
 
 def chunked_cross_entropy(x: torch.Tensor, w_head: torch.Tensor,

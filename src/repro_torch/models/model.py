@@ -18,6 +18,7 @@ import torch
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.sharding import constrain, local, placed
 from repro_torch.utils.device import full_precision_matmul, resolve_device
 
 
@@ -45,6 +46,27 @@ def init_params(cfg: ArchConfig, generator, device=None):
     return _init(cfg, generator, dev)
 
 
+def param_specs(cfg: ArchConfig):
+    """The parameters' logical PartitionSpecs, in the port's tree: one
+    dictionary per layer (the reference's period-stacked tree, with its
+    leading ``None``, is ``convert.specs_to_reference_layout`` of it)."""
+    s = {"layers": T.stack_spec(cfg),
+         "final_norm": L.norm_spec(cfg),
+         "head": L.head_spec(cfg)}
+    if has_token_embed(cfg):
+        s["embed"] = L.embed_spec(cfg)
+    return s
+
+
+def cache_specs(cfg: ArchConfig):
+    """The caches' logical PartitionSpecs, one dictionary per layer."""
+    return T.stack_cache_spec(cfg)
+
+
+def _embed(ids: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return w[ids.to(torch.long)]
+
+
 def forward(params, cfg: ArchConfig, inputs, *, positions=None, caches=None,
             cache_len=None, attn_override=None):
     """inputs: (B, S) int tokens, or (B, S, d) embeddings for stub
@@ -53,12 +75,18 @@ def forward(params, cfg: ArchConfig, inputs, *, positions=None, caches=None,
     ``cache_len`` (an int) onwards and the recurrent states advanced, in
     place. ``attn_override`` is
     threaded to ``T.stack_apply``. float32 products stay full float32 on
-    the card (no TF32)."""
+    the card (no TF32). Under a mesh the embedding's rows are gathered on
+    each rank's token ids with the table whole (``local``), its gradient
+    summed over the batch axes: DTensor's rule for the gather's backward
+    (an ``index_put``) fails on torch 2.11."""
     full_precision_matmul()
     if inputs.ndim == 2:
-        x = params["embed"]["w"][inputs.to(torch.long)]
+        ids, table = placed("dp", None), placed(None, None)
+        x = local(_embed, inputs, params["embed"]["w"],
+                  out=placed("dp", None, None), ins=(ids, table),
+                  grads=(ids, placed(None, None, summed=("dp",))))
     else:
-        x = inputs.to(L.dtype_of(cfg))
+        x = constrain(inputs.to(L.dtype_of(cfg)), "dp", None, None)
     B, S = x.shape[:2]
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,

@@ -6,10 +6,18 @@ one-hot (T, E, C) product. Each expert gets a buffer of ``cap`` rows;
 tokens over capacity are dropped (standard capacity MoE) and the
 Switch-style auxiliary loss pushes the router toward uniform load.
 
-One card holds the whole batch, so the reference's groups over the mesh's
-batch axis are one group here (``g = gcd(T, 1) = 1``): the dispatch runs
-on (T, d) directly. Groups over a mesh come with the sharding slice
-(ROADMAP.md).
+Tokens are cut into ``g = gcd(T, dp_size())`` groups of ``T / g``, each
+dispatched on its own with a capacity of its own, as the reference
+vmaps its dispatch over the mesh's batch axis: one group (the whole
+batch) on one card or with no mesh. Under a mesh (``sharding.
+activation_sharding``) the tokens are a DTensor cut over the batch axes,
+so each rank holds its own groups; the dispatch, the expert products and
+the combine run on them as plain tensors (``sharding.local``, like the
+reference's per-group vmap). The experts stay cut over "model" (expert
+parallelism, the reference's ``"tp"`` on the expert axis): each rank of
+"model" dispatches its groups whole, runs only its block of the experts
+(their weights gathered over the batch axes alone) and adds only their
+rows in the combine, so the block's output is summed over "model".
 
 Ties and orders follow the reference:
 
@@ -27,11 +35,16 @@ included, is captured as one CUDA graph (``serve.kv_cluster``).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import sharding
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import dtype_of, normal
+from repro_torch.models.sharding import (P, constrain, dp_size, local,
+                                        placed)
 
 _FP8 = {"float8_e4m3fn": torch.float8_e4m3fn}
 
@@ -49,6 +62,22 @@ def moe_init(gen, cfg: ArchConfig, device="cpu"):
               "sh_up": normal(gen, (d, fs), d ** -0.5, dt, device),
               "sh_down": normal(gen, (fs, d), fs ** -0.5, dt, device)}
     return p
+
+
+def moe_spec(cfg: ArchConfig):
+    s = {"router": P("fsdp", None),
+         "gate": P("tp", "fsdp", None), "up": P("tp", "fsdp", None),
+         "down": P("tp", None, "fsdp")}
+    if cfg.moe_shared_experts:
+        s |= {"sh_gate": P("fsdp", "tp"), "sh_up": P("fsdp", "tp"),
+              "sh_down": P("tp", "fsdp")}
+    return s
+
+
+def groups(tokens: int) -> int:
+    """The dispatch's groups for ``tokens`` tokens: ``gcd(T, dp_size())``
+    (1 with no mesh)."""
+    return math.gcd(tokens, dp_size())
 
 
 def capacity(cfg: ArchConfig, tokens: int) -> int:
@@ -136,43 +165,97 @@ def _combine_local(y, st, sg, keep, slot, order, tl: int, k: int):
     return out
 
 
+def _top1_counts(probs: torch.Tensor, e: int) -> torch.Tensor:
+    """How many of the (..., E) rows of ``probs`` pick each expert first
+    (argmax: the first on ties), float32."""
+    top1 = torch.argmax(probs, dim=-1).reshape(-1)
+    return torch.zeros((e,), dtype=torch.float32, device=probs.device
+                       ).index_add(0, top1, torch.ones(
+                           (top1.numel(),), dtype=torch.float32,
+                           device=probs.device))
+
+
+def _experts(xg, probs, wg, wu, wd, k: int, cap: int, acc, first: int):
+    """Dispatch, expert products and combine of each group: xg (G, Tl, d),
+    probs (G, Tl, E) -> (G, Tl, d). The weights are experts ``first``
+    onwards (all of them, or this rank's block under a mesh): the other
+    experts' rows add nothing here."""
+    e, el = probs.shape[-1], wg.shape[0]
+    outs = []
+    for i in range(xg.shape[0]):
+        buf, st, sg, keep, slot, order = _dispatch_local(xg[i], probs[i], k,
+                                                         e, cap)
+        if el < e:
+            buf = buf[first:first + el]
+        h = _expert_product(buf, wg, acc)
+        u = _expert_product(buf, wu, acc)
+        y = _expert_product(F.silu(h) * u, wd, acc)
+        if el < e:
+            y = F.pad(y, (0, 0, 0, 0, first, e - first - el))
+        outs.append(_combine_local(y, st, sg, keep, slot, order,
+                                   xg.shape[1], k))
+    return outs[0][None] if len(outs) == 1 else torch.stack(outs)
+
+
+def _route(p, x: torch.Tensor, cfg: ArchConfig):
+    """(xf (g, Tl, d), probs (g, Tl, E) float32, g, cap) of x (B, S, d)."""
+    B, S, d = x.shape
+    T = B * S
+    g = groups(T)
+    xf = constrain(x.reshape(g, T // g, d), "dp", None, None)
+    logits = xf.to(torch.float32) @ p["router"]              # (g, Tl, E) f32
+    probs = constrain(torch.softmax(logits, dim=-1), "dp", None, None)
+    return xf, probs, g, capacity(cfg, T // g)
+
+
 def moe_apply(p, x: torch.Tensor, cfg: ArchConfig):
     """x: (B, S, d) -> (y (B, S, d), aux_loss float32 scalar)."""
     B, S, d = x.shape
     T = B * S
     e, k = cfg.moe_num_experts, cfg.moe_top_k
-    cap = capacity(cfg, T)
-    xf = x.reshape(T, d)
-    logits = xf.to(torch.float32) @ p["router"]              # (T, E) f32
-    probs = torch.softmax(logits, dim=-1)
+    xf, probs, g, cap = _route(p, x, cfg)
 
-    # Switch-style aux loss over the batch (argmax: the first on ties)
-    me = probs.mean(0)
-    top1 = torch.argmax(probs, dim=-1)
-    ce = torch.zeros((e,), dtype=torch.float32, device=x.device).index_add(
-        0, top1, torch.ones((T,), dtype=torch.float32, device=x.device)) / T
+    # Switch-style aux loss over the global batch
+    rows = placed("dp", None, None)
+    me = probs.reshape(T, e).mean(0)
+    ce = local(_top1_counts, probs, e, out=placed(None, summed=("dp",)),
+               ins=(rows, None)) / T
     aux = e * torch.sum(me * ce)
 
-    buf, st, sg, keep, slot, order = _dispatch_local(xf, probs, k, e, cap)
+    # each rank of "model" adds its experts' share of every token's rows;
+    # their weights' gradients are summed over the batch axes
     wg, wu, wd = _expert_weights(p, cfg)
-    acc = dtype_of(cfg)
-    h = _expert_product(buf, wg, acc)
-    u = _expert_product(buf, wu, acc)
-    y = _expert_product(F.silu(h) * u, wd, acc)
-    out = _combine_local(y, st, sg, keep, slot, order, T, k).reshape(B, S, d)
+    share, wp = placed("dp", None, None, summed=("tp",)), placed("tp", None,
+                                                                  None)
+    first = sharding.tp_rank() * (e // sharding.tp_size())
+    out = local(
+        lambda xl, pl, *ws: _experts(xl, pl, *ws, k, cap, dtype_of(cfg),
+                                     first),
+        xf, probs, wg, wu, wd, out=share, ins=(rows, rows, wp, wp, wp),
+        grads=(share, share) + (placed("tp", None, None,
+                                       summed=("dp",)),) * 3)
+    out = constrain(out, "dp", None, None).reshape(B, S, d)
     if "sh_gate" in p:   # shared expert(s): applied to every token
-        sh = F.silu(xf @ p["sh_gate"]) * (xf @ p["sh_up"])
-        out = out + (sh @ p["sh_down"]).reshape(B, S, d)
+        xflat = x.reshape(T, d)
+        sh = constrain(F.silu(xflat @ p["sh_gate"]) * (xflat @ p["sh_up"]),
+                       "dp", "tp")
+        out = out + constrain(sh @ p["sh_down"], "dp", None).reshape(B, S, d)
     return out, aux
 
 
 def dropped(cfg: ArchConfig, x: torch.Tensor, p) -> torch.Tensor:
     """The number of (token, choice) pairs of ``x`` (B, S, d) that
-    ``moe_apply`` drops over capacity, as a device tensor (a diagnostic:
-    the same router and dispatch, no expert products)."""
-    B, S, d = x.shape
-    xf = x.reshape(B * S, d)
-    probs = torch.softmax(xf.to(torch.float32) @ p["router"], dim=-1)
-    keep = _dispatch_local(xf, probs, cfg.moe_top_k, cfg.moe_num_experts,
-                           capacity(cfg, B * S))[3]
-    return (~keep).sum()
+    ``moe_apply`` drops over capacity, summed over its groups (and over
+    the ranks under a mesh), as a device tensor (a diagnostic: the same
+    router and dispatch, no expert products)."""
+    xf, probs, _, cap = _route(p, x, cfg)
+
+    def count(xg, pg):
+        return sum((~_dispatch_local(xg[i], pg[i], cfg.moe_top_k,
+                                     cfg.moe_num_experts, cap)[3]).sum()
+                   for i in range(xg.shape[0]))
+    with torch.no_grad():
+        rows = placed("dp", None, None)
+        return sharding.value(local(count, xf, probs,
+                                    out=placed(summed=("dp",)),
+                                    ins=(rows, rows)))

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import dtype_of, normal
+from repro_torch.models.sharding import P, constrain
 
 _WKV_CHUNK = 128
 
@@ -52,6 +53,21 @@ def rwkv_init(gen, cfg: ArchConfig, device="cpu"):
         "mu_c": torch.full((2, d), 0.5, dtype=dt, device=device),
         "ck": mat((d, f)), "cv": mat((f, d), f ** -0.5), "cr": mat((d, d)),
     }
+
+
+def rwkv_spec(cfg: ArchConfig):
+    return {"mu": P(None, None), "w0": P(), "w_lora_a": P("fsdp", None),
+            "w_lora_b": P(None, "fsdp"), "u": P("tp", None),
+            "wr": P("fsdp", "tp"), "wk": P("fsdp", "tp"),
+            "wv": P("fsdp", "tp"), "wg": P("fsdp", "tp"),
+            "wo": P("tp", "fsdp"), "ln_x": P(),
+            "mu_c": P(None, None), "ck": P("fsdp", "tp"),
+            "cv": P("tp", "fsdp"), "cr": P("fsdp", "tp")}
+
+
+def rwkv_cache_spec(cfg: ArchConfig):
+    return {"s": P("dp", "tp", None, None), "x_tm": P("dp", None),
+            "x_cm": P("dp", None)}
 
 
 def rwkv_cache_init(cfg: ArchConfig, batch: int, device="cpu"):
@@ -158,7 +174,8 @@ def rwkv_time_mix(p, x: torch.Tensor, cfg: ArchConfig,
         return x + (xprev - x) * mu
 
     def heads(t):
-        return t.reshape(B, S, H, hd).to(torch.float32)
+        return constrain(t.reshape(B, S, H, hd).to(torch.float32),
+                         "dp", None, "tp", None)
 
     r = heads(lerp(p["mu"][0]) @ p["wr"])
     k = heads(lerp(p["mu"][1]) @ p["wk"])
@@ -168,10 +185,12 @@ def rwkv_time_mix(p, x: torch.Tensor, cfg: ArchConfig,
     wlog = p["w0"] + torch.tanh(lerp(p["mu"][3]).to(torch.float32)
                                 @ p["w_lora_a"].to(torch.float32)) \
         @ p["w_lora_b"].to(torch.float32)
-    w = torch.exp(-torch.exp(wlog)).reshape(B, S, H, hd)      # (0, 1)
+    w = constrain(torch.exp(-torch.exp(wlog)).reshape(B, S, H, hd),
+                  "dp", None, "tp", None)                     # (0, 1)
 
-    s0 = cache["s"] if cache is not None else torch.zeros(
-        (B, H, hd, hd), dtype=torch.float32, device=x.device)
+    s0 = constrain(cache["s"] if cache is not None else torch.zeros(
+        (B, H, hd, hd), dtype=torch.float32, device=x.device),
+        "dp", "tp", None, None)
     if S > 1 and S % _WKV_CHUNK == 0:
         s_last, y = _wkv_chunked(r, k, v, w, p["u"], s0)
     else:

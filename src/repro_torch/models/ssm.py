@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import dtype_of, normal
+from repro_torch.models.sharding import P, constrain, local, placed
 
 _CHUNK = 256
 
@@ -40,6 +41,17 @@ def mamba_init(gen, cfg: ArchConfig, device="cpu"):
         "D": torch.ones((di,), dtype=torch.float32, device=device),
         "out_proj": normal(gen, (di, d), di ** -0.5, dt, device),
     }
+
+
+def mamba_spec(cfg: ArchConfig):
+    return {"in_proj": P("fsdp", "tp"), "conv_w": P(None, "tp"),
+            "conv_b": P("tp"), "x_proj": P("tp", None), "dt_w": P(None, "tp"),
+            "dt_b": P("tp"), "A_log": P("tp", None), "D": P("tp"),
+            "out_proj": P("tp", "fsdp")}
+
+
+def mamba_cache_spec(cfg: ArchConfig):
+    return {"h": P("dp", "tp", None), "conv": P("dp", None, "tp")}
 
 
 def mamba_cache_init(cfg: ArchConfig, batch: int, device="cpu"):
@@ -83,12 +95,15 @@ def _prefix_scan(a: torch.Tensor, b: torch.Tensor):
 
 
 def _ssm_scan(dt: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
-              xin: torch.Tensor, A: torch.Tensor, h0: torch.Tensor):
+              xin: torch.Tensor, A: torch.Tensor, h0: torch.Tensor | None):
     """Chunked selective scan; the discretized (B, chunk, di, ds) tensors
     exist one chunk at a time. dt, xin: (B, S, di) float32; Bm, Cm:
-    (B, S, ds) float32; A: (di, ds); h0: (B, di, ds). Returns (h_last,
-    y (B, S, di) float32)."""
+    (B, S, ds) float32; A: (di, ds); h0: (B, di, ds), zeros when None.
+    Returns (h_last, y (B, S, di) float32)."""
     B, S, di = dt.shape
+    if h0 is None:
+        h0 = torch.zeros((B, di, A.shape[1]), dtype=torch.float32,
+                         device=dt.device)
     cs = min(_CHUNK, S)
     if S % cs:
         raise ValueError(f"sequence length {S} must be a multiple of the "
@@ -114,11 +129,21 @@ def mamba_apply(p, x: torch.Tensor, cfg: ArchConfig, cache: dict | None = None):
     di, ds = cfg.mamba_d_inner, cfg.mamba_d_state
     dtr = cfg.resolved_dt_rank
 
-    xz = x @ p["in_proj"]
+    xz = constrain(x @ p["in_proj"], "dp", None, "tp")
     xin, z = xz[..., :di], xz[..., di:]
     hist = cache["conv"] if cache is not None else None
-    xin, new_hist = _causal_conv(xin, p["conv_w"], p["conv_b"], hist)
-    xin = F.silu(xin)
+    # under a mesh the conv and the scan run on each rank's channels
+    # (``local``: DTensor has no rule for a grouped conv over cut
+    # channels); their weights' gradients are summed over the batch axes,
+    # and the channels' shares of the B and C projections over "model"
+    chan = placed("dp", None, "tp")
+    xin, new_hist = local(
+        _causal_conv, xin, p["conv_w"], p["conv_b"], hist,
+        out=(chan, chan), ins=(chan, placed(None, "tp"), placed("tp"),
+                               None if hist is None else chan),
+        grads=(chan, placed(None, "tp", summed=("dp",)),
+               placed("tp", summed=("dp",)), chan))
+    xin = constrain(F.silu(xin), "dp", None, "tp")
 
     xdbl = xin @ p["x_proj"]
     # softplus in the parameter dtype, then float32
@@ -127,12 +152,19 @@ def mamba_apply(p, x: torch.Tensor, cfg: ArchConfig, cache: dict | None = None):
     Cm = xdbl[..., dtr + ds:].to(torch.float32)
     A = -torch.exp(p["A_log"])                               # (di, ds) f32
 
-    B = x.shape[0]
-    h0 = cache["h"] if cache is not None else torch.zeros(
-        (B, di, ds), dtype=torch.float32, device=x.device)
-    h_last, y = _ssm_scan(dt, Bm, Cm, xin.to(torch.float32), A, h0)
-    y = y + p["D"] * xin.to(torch.float32)
-    y = (y.to(x.dtype) * F.silu(z)) @ p["out_proj"]
+    h0 = cache["h"] if cache is not None else None
+    rows, state = placed("dp", None, None), placed("dp", "tp", None)
+    h_last, y = local(
+        _ssm_scan, dt, Bm, Cm, xin.to(torch.float32), A, h0,
+        out=(state, chan),
+        ins=(chan, rows, rows, chan, placed("tp", None),
+             None if h0 is None else state),
+        grads=(chan, placed("dp", None, None, summed=("tp",)),
+               placed("dp", None, None, summed=("tp",)), chan,
+               placed("tp", None, summed=("dp",)), state))
+    y = constrain(y + p["D"] * xin.to(torch.float32), "dp", None, "tp")
+    y = constrain((y.to(x.dtype) * F.silu(z)) @ p["out_proj"],
+                  "dp", None, None)
     if cache is not None:
         cache["h"].copy_(h_last)
         cache["conv"].copy_(new_hist)

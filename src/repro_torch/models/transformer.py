@@ -26,6 +26,7 @@ from repro_torch.models import moe as M
 from repro_torch.models import rwkv6 as R
 from repro_torch.models import ssm as S
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.sharding import constrain
 
 # ---------------------------------------------------------------------------
 # Single block
@@ -52,6 +53,21 @@ def block_init(gen, cfg: ArchConfig, mix: str, ffn: str, device="cpu"):
     return p
 
 
+def block_spec(cfg: ArchConfig, mix: str, ffn: str):
+    s = {"norm1": L.norm_spec(cfg), "norm2": L.norm_spec(cfg)}
+    if mix == "attn":
+        s["attn"] = L.attn_spec(cfg)
+    elif mix == "mamba":
+        s["mamba"] = S.mamba_spec(cfg)
+    elif mix == "rwkv":
+        s["rwkv"] = R.rwkv_spec(cfg)
+    if ffn == "mlp":
+        s["mlp"] = L.mlp_spec(cfg)
+    elif ffn == "moe":
+        s["moe"] = M.moe_spec(cfg)
+    return s
+
+
 def block_cache_init(cfg: ArchConfig, mix: str, batch: int, max_len: int,
                      device="cpu"):
     if mix == "attn":
@@ -63,6 +79,16 @@ def block_cache_init(cfg: ArchConfig, mix: str, batch: int, max_len: int,
     raise ValueError(mix)
 
 
+def block_cache_spec(cfg: ArchConfig, mix: str):
+    if mix == "attn":
+        return L.attn_cache_spec(cfg)
+    if mix == "mamba":
+        return S.mamba_cache_spec(cfg)
+    if mix == "rwkv":
+        return R.rwkv_cache_spec(cfg)
+    raise ValueError(mix)
+
+
 def block_apply(p, x, cfg: ArchConfig, mix: str, ffn: str, *, positions,
                 cache=None, cache_len=None, attn_override=None):
     """Returns (x, new_cache, aux).
@@ -71,6 +97,7 @@ def block_apply(p, x, cfg: ArchConfig, mix: str, ffn: str, *, positions,
     mixes: called as ``override(p_attn, h, positions=, cache=,
     cache_len=) -> (y, new_cache)`` (the clustered-KV decode path).
     """
+    x = constrain(x, "dp", None, None)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = L.rms_norm(x, p["norm1"]["scale"], cfg.norm_eps)
     if mix == "attn":
@@ -108,6 +135,11 @@ def stack_init(gen, cfg: ArchConfig, device="cpu") -> list[dict]:
             for mix, ffn in cfg.layer_plan()]
 
 
+def stack_spec(cfg: ArchConfig) -> list[dict]:
+    """One spec dictionary per layer (no stacking axis)."""
+    return [block_spec(cfg, mix, ffn) for mix, ffn in cfg.layer_plan()]
+
+
 def stack_cache_init(cfg: ArchConfig, batch: int, max_len: int,
                      device="cpu") -> list[dict]:
     """One cache per layer: ``{"k", "v"}`` of (batch, max_len, Hkv, hd)
@@ -115,6 +147,11 @@ def stack_cache_init(cfg: ArchConfig, batch: int, max_len: int,
     for RWKV."""
     return [block_cache_init(cfg, mix, batch, max_len, device)
             for mix, _ in cfg.layer_plan()]
+
+
+def stack_cache_spec(cfg: ArchConfig) -> list[dict]:
+    """One cache spec dictionary per layer."""
+    return [block_cache_spec(cfg, mix) for mix, _ in cfg.layer_plan()]
 
 
 def stack_apply(layers, x, cfg: ArchConfig, *, positions, caches=None,

@@ -1,7 +1,8 @@
 """Optimizers as plain tensor ops: AdamW and Adafactor (the counterpart
 of ``repro.optim.optimizers``).
 
-Each optimizer is ``Optimizer(init, update)`` over the reference's state
+Each optimizer is ``Optimizer(init, update, state_specs)`` over the
+reference's state
 trees: AdamW keeps ``{"mu", "nu"}`` in float32; Adafactor keeps
 ``{"mu" (bfloat16), "vr", "vc"}``, factored (row and column means of the
 squared gradient) for leaves of two or more dimensions. Trees are nests
@@ -12,8 +13,10 @@ each leaf's update, then the cast back to the parameter's dtype.
 ``torch.optim`` is not used: its state is not the reference's, and it
 rounds in another order.
 
-The reference's ``Optimizer.state_specs`` (PartitionSpecs of the state)
-waits for the sharding slice (ROADMAP.md, Queue 1 item 15 part 3).
+``state_specs(pspecs, abstract_params)`` gives the state's logical
+PartitionSpecs from the parameters' (``models.param_specs``), in the
+same tree; Adafactor's need the parameters' ranks (``abstract_params``:
+the parameters, or their ``meta``-device stand-ins).
 Adafactor factors a leaf by its own shape, as the reference does; the
 reference stacks each layer's leaves over the periods of its layer plan,
 so on a model the two factor (and clip the update's RMS) over different
@@ -27,6 +30,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from repro_torch.models.sharding import P, is_spec
 from repro_torch.utils.tree import tree_flatten, tree_leaves, tree_map, \
     tree_unflatten
 
@@ -34,6 +38,7 @@ from repro_torch.utils.tree import tree_flatten, tree_leaves, tree_map, \
 class Optimizer(NamedTuple):
     init: Callable          # params -> state
     update: Callable        # (grads, state, params, step) -> (new_params, state)
+    state_specs: Callable   # (param specs, abstract params) -> state specs
 
 
 def _step_tensor(step, params) -> torch.Tensor:
@@ -110,7 +115,10 @@ def adamw(lr: Callable | float, *, b1=0.9, b2=0.95, eps=1e-8,
                          for part in _split(out, 3))
         return new_p, {"mu": mu, "nu": nu}
 
-    return Optimizer(init, update)
+    def state_specs(pspecs, abstract_params=None):
+        return {"mu": pspecs, "nu": pspecs}
+
+    return Optimizer(init, update, state_specs)
 
 
 # ---------------------------------------------------------------------------
@@ -169,4 +177,24 @@ def adafactor(lr: Callable | float, *, b1=0.9, decay=0.99, eps=1e-30,
                              for part in _split(out, 4))
         return new_p, {"mu": mu, "vr": vr, "vc": vc}
 
-    return Optimizer(init, update)
+    def state_specs(pspecs, abstract_params):
+        """Needs the parameters' ranks to know which leaves are factored."""
+        def norm(s, nd):
+            return tuple(s) + (None,) * (nd - len(tuple(s)))
+
+        def row(s, p):
+            if _factored(p):
+                return P(*norm(s, p.ndim)[:-1])
+            return P(*norm(s, p.ndim))
+
+        def col(s, p):
+            if _factored(p):
+                t = norm(s, p.ndim)
+                return P(*(t[:-2] + t[-1:]))
+            return P(None)
+
+        vr = tree_map(row, pspecs, abstract_params, is_leaf=is_spec)
+        vc = tree_map(col, pspecs, abstract_params, is_leaf=is_spec)
+        return {"mu": pspecs, "vr": vr, "vc": vc}
+
+    return Optimizer(init, update, state_specs)

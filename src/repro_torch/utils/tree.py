@@ -11,12 +11,16 @@ from __future__ import annotations
 _LEAF = object()
 
 
-def tree_flatten(tree):
+def tree_flatten(tree, is_leaf=None):
     """(leaves in JAX's order, treedef): the treedef is ``tree`` with each
-    leaf replaced by a marker, for ``tree_unflatten``."""
+    leaf replaced by a marker, for ``tree_unflatten``. ``is_leaf(t)``
+    true makes ``t`` a leaf whatever its type (a spec tuple)."""
     leaves = []
 
     def walk(t):
+        if is_leaf is not None and is_leaf(t):
+            leaves.append(t)
+            return _LEAF
         if t is None:
             return None
         if isinstance(t, dict):
@@ -46,14 +50,15 @@ def tree_unflatten(treedef, leaves):
     return out
 
 
-def tree_leaves(tree) -> list:
-    return tree_flatten(tree)[0]
+def tree_leaves(tree, is_leaf=None) -> list:
+    return tree_flatten(tree, is_leaf)[0]
 
 
-def tree_map(fn, tree, *rest):
+def tree_map(fn, tree, *rest, is_leaf=None):
     """``fn`` over the leaves of ``tree`` and the matching leaves of the
-    trees of ``rest`` (same structure), in one tree of ``tree``'s shape."""
-    leaves, treedef = tree_flatten(tree)
+    trees of ``rest`` (same structure), in one tree of ``tree``'s shape.
+    ``is_leaf`` applies to ``tree`` only."""
+    leaves, treedef = tree_flatten(tree, is_leaf)
     others = [tree_flatten(t)[0] for t in rest]
     if any(len(o) != len(leaves) for o in others):
         raise ValueError("trees of different structure")

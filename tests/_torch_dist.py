@@ -20,12 +20,15 @@ import time
 import traceback
 
 
-def _rank_main(fn, rank: int, world: int, rdv: str, q, kwargs: dict):
+def _rank_main(fn, rank: int, world: int, rdv: str, q, kwargs: dict,
+               backend: str = "gloo"):
     import torch
     import torch.distributed as dist
     torch.set_num_threads(1)
     try:
-        dist.init_process_group("gloo", init_method=f"file://{rdv}",
+        if backend == "nccl":
+            torch.cuda.set_device(rank)
+        dist.init_process_group(backend, init_method=f"file://{rdv}",
                                 rank=rank, world_size=world)
         try:
             out = fn(rank, world, **kwargs)
@@ -36,8 +39,10 @@ def _rank_main(fn, rank: int, world: int, rdv: str, q, kwargs: dict):
         q.put((rank, "error", traceback.format_exc()))
 
 
-def run_ranks(fn, world: int, tmpdir: str, timeout: float, **kwargs) -> list:
-    """Every rank's ``fn(rank, world, **kwargs)``, in rank order.
+def run_ranks(fn, world: int, tmpdir: str, timeout: float,
+              backend: str = "gloo", **kwargs) -> list:
+    """Every rank's ``fn(rank, world, **kwargs)``, in rank order, on a
+    ``backend`` group (NCCL: rank r on card r).
 
     Keep ``kwargs`` small (paths, not arrays): ``Process.start`` writes
     them down a pipe, and once that is full it waits for the child to
@@ -47,7 +52,8 @@ def run_ranks(fn, world: int, tmpdir: str, timeout: float, **kwargs) -> list:
     q = ctx.Queue()
     rdv = os.path.join(str(tmpdir), f"rendezvous_{world}_{os.getpid()}")
     procs = [ctx.Process(target=_rank_main,
-                         args=(fn, r, world, rdv, q, kwargs), daemon=True)
+                         args=(fn, r, world, rdv, q, kwargs, backend),
+                         daemon=True)
              for r in range(world)]
     for p in procs:
         p.start()
@@ -351,3 +357,267 @@ def ddp_train_outputs(rank: int, world: int):
             "state": {k: params_to_numpy(v, cfg)
                       for k, v in out["opt_state"].items()},
             "resid": tree_map(tensor_to_numpy, out["resid"])}
+
+
+# ---------------------------------------------------------------------------
+# What each rank computes for tests/test_torch_mesh_train.py
+# ---------------------------------------------------------------------------
+# The parent writes the reference's float32 Qwen3-smoke parameters, the
+# batch and the MoE block's inputs (numpy, pickled) into ``work``; every
+# result crosses back as numpy, rank 0's in full, the other ranks' shard
+# ranges and cluster meshes only.
+
+#: the mesh trainer's arguments (Qwen3 smoke, float32, constant-ish lr)
+MESH_ARGS = ["--device", "cpu", "--arch", "qwen3_0_6b", "--smoke",
+             "--steps", "2", "--batch", "4", "--seq", "32", "--lr", "1e-3",
+             "--warmup", "1", "--log-every", "100", "--ckpt-every", "2"]
+#: mesh-step steps held against the reference's
+MESH_STEPS = 8
+#: the smoke configs whose mesh step is held against the reference's as
+#: well, each for the path it takes on the (2, 2) mesh: the attention's
+#: q-group mode (Granite: 1 kv head, 4 q heads), its key-sequence mode
+#: (SmolLM: 1 kv head, 3 q heads) and Mamba with the experts cut over
+#: "model" (Jamba)
+MODE_ARCHS = ("granite_34b", "smollm_360m", "jamba_v0_1_52b")
+#: the MoE block's config: Jamba's smoke at capacity factor 0.5, so that
+#: groups of 16 tokens drop pairs
+MOE_CAPACITY = 0.5
+MOE_B, MOE_S = 4, 8
+
+
+def shard_ranges(tree, mesh, specs):
+    """Per leaf of ``tree`` (tensors), this rank's shard under ``specs``
+    on ``mesh`` as ``((start, stop), ...)`` per dim, read off a
+    distributed ``arange`` (checked to be that box of it)."""
+    import torch
+
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.utils.tree import tree_map
+
+    def one(spec, t):
+        full = torch.arange(t.numel(), dtype=torch.int64).reshape(t.shape)
+        local = MESH.distribute(full, mesh, spec).to_local()
+        first = int(local.reshape(-1)[0]) if local.numel() else 0
+        start, rem = [], first
+        for n in reversed(t.shape):
+            start.append(rem % n)
+            rem //= n
+        start = start[::-1]
+        box = tuple((s, s + n) for s, n in zip(start, local.shape))
+        assert torch.equal(local, full[tuple(slice(a, b) for a, b in box)])
+        return box
+    return tree_map(one, specs, tree, is_leaf=lambda s: isinstance(s, tuple))
+
+
+def _load(work: str, name: str):
+    import pickle
+    with open(os.path.join(work, name), "rb") as f:
+        return pickle.load(f)
+
+
+def mesh_train_outputs(rank: int, world: int, work: str):
+    """This rank's part of the mesh tests on a (2, 2) ("data", "model")
+    gloo mesh: its shard ranges of every parameter (also on a (2, 1, 2)
+    ("pod", "data", "model") mesh) and the indivisible dim's error; from
+    rank 0 also the mesh step's step-1 loss and gradients, its
+    ``MESH_STEPS`` losses and final parameters and AdamW state, the same
+    of the single-process step, step 1's loss and gradients for each of
+    ``MODE_ARCHS``, and the MoE block at dp = 2
+    with its gradients (reference layout, numpy)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.launch import train as T
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.models import moe as M
+    from repro_torch.models import param_specs
+    from repro_torch.models.convert import (params_from_numpy,
+                                            params_to_numpy,
+                                            specs_to_reference_layout,
+                                            tensor_from_numpy,
+                                            tensor_to_numpy,
+                                            to_reference_layout)
+    from repro_torch.models.sharding import P, activation_sharding, value
+    from repro_torch.optim import adamw
+
+    cfg = get_arch("qwen3_0_6b", smoke=True)
+    mesh = MESH.make_test_mesh((2, 2), ("data", "model"))
+    params = params_from_numpy(_load(work, "params.pkl"), cfg, "cpu")
+    specs = param_specs(cfg)
+    ref_specs = specs_to_reference_layout(specs, cfg)
+    out = {"ranges": {}}
+    for name, m in (("2x2", mesh), ("pod", MESH.make_test_mesh(
+            (2, 1, 2), ("pod", "data", "model")))):
+        box = shard_ranges(params, m, specs)
+        # the reference's stacked leaves: the layers' boxes, behind the
+        # stacking axis (whole)
+        out["ranges"][name] = to_reference_layout(
+            box, cfg, lambda bs: bs[0], lambda b: b)
+    try:
+        MESH.distribute(torch.zeros(3, 4), mesh, P("fsdp", "tp"))
+        out["indivisible"] = None
+    except ValueError as e:
+        out["indivisible"] = str(e)
+    # the sharded fits' 1-axis meshes: every rank, then the first 2
+    out["cluster"] = {}
+    for n in (None, 2):
+        m = MESH.make_cluster_mesh(n)
+        if n is None or rank < n:
+            out["cluster"][n] = (m.axis, m.size, m.rank, m.backend)
+
+    def ref(tree):
+        return params_to_numpy(tree, cfg)
+
+    batch = {k: torch.from_numpy(v)
+             for k, v in _load(work, "batch.pkl").items()}
+    opt = adamw(1e-3)
+    dparams, dstate = T.distribute_state(params, opt.init(params), cfg, opt,
+                                         mesh)
+    dbatch = T.distribute_batch(batch, mesh)
+    with activation_sharding(mesh):
+        loss, _, grads = loss_and_grads(cfg, dparams, dbatch)
+    out["mesh"] = {"loss": float(value(loss)),
+                   "grads": ref(MESH.full(grads))}
+    loss, _, grads = loss_and_grads(cfg, params, batch)
+    out["single"] = {"loss": float(loss), "grads": ref(grads)}
+    for name, fn, p, s, b in (
+            ("mesh", T.make_mesh_step(cfg, opt, mesh), dparams, dstate,
+             dbatch),
+            ("single", make_train_step(cfg, opt), params, opt.init(params),
+             batch)):
+        losses = []
+        for step in range(MESH_STEPS):
+            p, s, _, metrics = fn(p, s, step, b)
+            losses.append(float(value(metrics["loss"])))
+        out[name] |= {"losses": losses, "params": ref(MESH.full(p)),
+                      "state": {k: ref(v) for k, v in
+                                MESH.full(s).items()}}
+
+    # the other attention modes, Mamba and the cut experts: step 1's loss
+    # and gradients
+    out["modes"] = {}
+    for arch in MODE_ARCHS:
+        acfg = get_arch(arch, smoke=True)
+        ap = params_from_numpy(_load(work, f"params_{arch}.pkl"), acfg, "cpu")
+        ab = T.distribute_batch({k: torch.from_numpy(v) for k, v in _load(
+            work, f"batch_{arch}.pkl").items()}, mesh)
+        with activation_sharding(mesh):
+            loss, _, grads = loss_and_grads(
+                acfg, MESH.distribute(ap, mesh, param_specs(acfg)), ab)
+        mode = {"loss": float(value(loss)),
+                "grads": params_to_numpy(MESH.full(grads), acfg)}
+        out["modes"][arch] = mode
+
+    # the MoE block at dp = 2 (groups of T / 2 tokens)
+    mcfg = dataclasses.replace(get_arch("jamba_v0_1_52b", smoke=True),
+                               moe_capacity_factor=MOE_CAPACITY)
+    mp_, x, r = _load(work, "moe.pkl")
+    mp_ = {k: tensor_from_numpy(v, "cpu") for k, v in mp_.items()}
+    x, r = torch.from_numpy(x), torch.from_numpy(r)
+
+    def moe_run(p, x, r):
+        """The block's output, aux loss, drops, and the gradients of
+        sum(y · r) + aux with respect to its weights and ``x``."""
+        p = {k: v.detach().requires_grad_() for k, v in p.items()}
+        x = x.detach().requires_grad_()
+        y, aux = M.moe_apply(p, x, mcfg)
+        ((y * r).sum() + aux).backward()
+        grads = {k: tensor_to_numpy(value(v.grad)) for k, v in p.items()}
+        return {"g": M.groups(MOE_B * MOE_S),
+                "y": tensor_to_numpy(value(y).detach()),
+                "aux": float(value(aux)),
+                "dropped": int(value(M.dropped(mcfg, x, p))),
+                "grads": grads | {"x": tensor_to_numpy(value(x.grad))}}
+    with activation_sharding(mesh):
+        out["moe"] = moe_run(MESH.distribute(mp_, mesh, M.moe_spec(mcfg)),
+                             MESH.distribute(x, mesh, P("dp", None, None)),
+                             MESH.distribute(r, mesh, P("dp", None, None)))
+    out["moe_single"] = moe_run(mp_, x, r)
+    out["specs"] = ref_specs
+    # every rank takes part in every collective; rank 0 reports in full
+    return out if rank == 0 else {k: out[k] for k in ("ranges", "cluster",
+                                                      "indivisible")}
+
+
+def mesh_checkpoint_outputs(rank: int, world: int, work: str):
+    """On a (2, 2) gloo mesh: ``launch.train --mesh 2x2`` of MESH_ARGS
+    writing ``work/ck_mesh``, and a ``--resume`` of the one-process
+    checkpoint in ``work/ck_single`` (at its last step, so no step runs);
+    rank 0 returns both runs' full parameters and AdamW state (reference
+    layout, numpy)."""
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.launch import train as T
+    from repro_torch.models.convert import params_to_numpy
+    runs = {}
+    for name, extra in (("wrote", ["--ckpt-dir", os.path.join(work,
+                                                             "ck_mesh")]),
+                        ("resumed", ["--ckpt-dir", os.path.join(
+                            work, "ck_single"), "--resume"])):
+        args = T.build_parser().parse_args(MESH_ARGS + ["--mesh", "2x2"]
+                                           + extra)
+        got = T.train(args, log=lambda _: None)
+        cfg = T.get_arch(args.arch, smoke=args.smoke)
+        full = (MESH.full(got["params"]), MESH.full(got["opt_state"]))
+        runs[name] = {"step": got["step"],
+                      "params": params_to_numpy(full[0], cfg),
+                      "state": {k: params_to_numpy(v, cfg)
+                                for k, v in full[1].items()}}
+    return runs if rank == 0 else None
+
+
+#: the smoke configs of the four-card mesh step: each attention score mode
+#: on a (2, 2) mesh (kv heads, q groups, the key sequence), Mamba, and the
+#: experts cut over "model"
+CARD_MESH_ARCHS = ("qwen3_0_6b", "granite_34b", "smollm_360m",
+                   "jamba_v0_1_52b", "kimi_k2_1t_a32b")
+
+
+def mesh_card_outputs(rank: int, world: int):
+    """On a (2, 2) ("data", "model") NCCL mesh of four cards: step 1's loss
+    and gradients of the mesh step of each of ``CARD_MESH_ARCHS`` (float32
+    smoke, batch 4 x 32) and of the same step on this rank's card alone,
+    the MoE dispatch cut into the mesh's groups (g = gcd(T, 2)) there too;
+    rank 0 returns ``{arch: (mesh loss, card loss, the largest gradient
+    gap over its leaf's largest magnitude)}``."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.launch import train as T
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import init_params, param_specs
+    from repro_torch.models import moe as M
+    from repro_torch.models.sharding import activation_sharding, value
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    dev = torch.device("cuda", rank)
+    mesh = MESH.make_test_mesh((2, 2), ("data", "model"))
+    out = {}
+    for arch in CARD_MESH_ARCHS:
+        cfg = get_arch(arch, smoke=True)
+        params = tree_map(lambda t: t.to(dev),
+                          init_params(cfg, 0, device="cpu"))
+        gen = torch.Generator().manual_seed(1)
+        batch = {k: torch.randint(0, cfg.vocab_size, (4, 32), generator=gen,
+                                  dtype=torch.int32).to(dev)
+                 for k in ("inputs", "labels")}
+        with activation_sharding(mesh):
+            loss, _, grads = loss_and_grads(
+                cfg, MESH.distribute(params, mesh, param_specs(cfg)),
+                T.distribute_batch(batch, mesh))
+        grads = tree_leaves(MESH.full(grads))
+        groups = M.groups
+        M.groups = lambda t: math.gcd(t, 2)
+        try:
+            one, _, want = loss_and_grads(cfg, params, batch)
+        finally:
+            M.groups = groups
+        worst = max(float((g - w).abs().max() / w.abs().max().clamp(
+            min=1e-30)) for g, w in zip(grads, tree_leaves(want)))
+        out[arch] = (float(value(loss)), float(one), worst)
+    return out if rank == 0 else None

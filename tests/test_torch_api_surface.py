@@ -174,16 +174,16 @@ def test_torch_top_level_seeders_are_the_facades():
 
 
 # ---------------------------------------------------------------------------
-# the training slice (ROADMAP.md Queue 1 item 15, part 2)
+# the training slice (ROADMAP.md Queue 1 item 15, parts 2 and 3a)
 # ---------------------------------------------------------------------------
 
-#: reference names of the LM substrate that wait for the sharding slice,
-#: by ROADMAP.md Queue 1 item: the PartitionSpec trees
-PART3_NOT_PORTED = {"param_specs": "15.3", "cache_specs": "15.3"}
-#: fields of the reference's ``Optimizer`` that wait for it
-OPTIMIZER_NOT_PORTED = {"state_specs": "15.3"}
+#: reference names of the LM substrate that the port lacks (none: the
+#: PartitionSpec trees came with the sharding slice)
+PART3_NOT_PORTED = {}
+#: fields of the reference's ``Optimizer`` that the port lacks (none)
+OPTIMIZER_NOT_PORTED = {}
 #: ``launch.steps`` names; ``batch_specs`` and ``token_specs`` give the
-#: shapes and dtypes only, their PartitionSpecs wait for item 15.3
+#: shapes and dtypes with their PartitionSpecs
 STEPS_NAMES = ["SHAPES", "ShapeCase", "abstract_caches", "abstract_params",
                "batch_specs", "make_decode_step", "make_prefill_step",
                "make_train_step", "shape_applicable", "token_specs"]
@@ -199,7 +199,7 @@ def _public(module) -> set[str]:
 
 def test_torch_models_holds_the_training_names():
     """Every public name of ``repro.models`` is in ``repro_torch.models``
-    (``train_loss`` now with the rest), or waits for item 15.3."""
+    (``train_loss``, ``param_specs`` and ``cache_specs`` with the rest)."""
     import repro.models
     import repro_torch.models
     theirs = _public(repro.models) - {"annotations"}
@@ -218,8 +218,34 @@ def test_torch_optim_is_repro_optim():
         _public(repro.optim) - {"annotations"})
     assert set(repro.optim.Optimizer._fields) - set(
         repro_torch.optim.Optimizer._fields) == set(OPTIMIZER_NOT_PORTED)
-    assert set(repro_torch.optim.Optimizer._fields) < set(
+    assert set(repro_torch.optim.Optimizer._fields) == set(
         repro.optim.Optimizer._fields)
+
+
+#: the names of ``repro.models.sharding`` and ``repro.launch.mesh`` the
+#: port carries (the rest of their namespaces are their imports)
+SHARDING_NAMES = ["P", "activation_sharding", "constrain", "dp_size",
+                  "tp_size"]
+MESH_NAMES = ["_logical_map", "make_cluster_mesh", "make_production_mesh",
+              "make_test_mesh", "replicated", "resolve_spec",
+              "shardings_for", "shardings_for_dropped"]
+
+
+@pytest.mark.parametrize("module,names", [
+    ("models.sharding", SHARDING_NAMES), ("launch.mesh", MESH_NAMES)])
+def test_torch_sharding_and_mesh_hold_the_reference_names(module, names):
+    """``repro_torch.models.sharding`` and ``repro_torch.launch.mesh``
+    hold the reference modules' names; every function of the reference's
+    is among them."""
+    import importlib
+    import inspect
+    theirs = importlib.import_module(f"repro.{module}")
+    ours = importlib.import_module(f"repro_torch.{module}")
+    own = {n for n, v in vars(theirs).items() if inspect.isfunction(v)
+           and v.__module__ == theirs.__name__}
+    assert own <= set(names)
+    for name in names:
+        assert hasattr(theirs, name) and hasattr(ours, name), name
 
 
 def test_torch_token_pipelines_mirror_the_reference():

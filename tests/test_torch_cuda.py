@@ -6,6 +6,7 @@ the card and no JAX::
 
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
 """
+import contextlib
 import os
 
 import numpy as np
@@ -1112,3 +1113,116 @@ def test_train_step_on_card_matches_cpu(cuda_device):
         far += int((err > 1e-5).sum())
         total += err.numel()
     assert far <= 1e-3 * total
+
+
+# ---------------------------------------------------------------------------
+# the MoE, Mamba and RWKV6 blocks; the trainer's mesh mode
+# ---------------------------------------------------------------------------
+
+#: (block, smoke config): the MoE feed-forward and the Mamba mixer of
+#: Jamba's smoke, RWKV6's time and channel mixes
+BLOCKS = [("moe", "jamba_v0_1_52b"), ("mamba", "jamba_v0_1_52b"),
+          ("rwkv", "rwkv6_1_6b")]
+
+
+def _block(name, p, x, cfg):
+    """The block's output(s) on x (B, S, d), float32."""
+    from repro_torch.models import moe, rwkv6, ssm
+    if name == "moe":
+        y, aux = moe.moe_apply(p, x, cfg)
+        return [y.float(), aux.float().reshape(1)]
+    if name == "mamba":
+        return [ssm.mamba_apply(p, x, cfg)[0].float()]
+    y, _ = rwkv6.rwkv_time_mix(p, x, cfg)
+    return [y.float(), rwkv6.rwkv_channel_mix(p, x)[0].float()]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name,arch", BLOCKS)
+def test_moe_mamba_rwkv_blocks_on_card_match_cpu(cuda_device, name, arch,
+                                                 dtype):
+    """Each block's forward on the card against the same block on the CPU
+    (S = 128: Mamba's scan in one chunk, RWKV6's chunked WKV): float32
+    within 1e-4 of the output's largest magnitude, bf16 within 2^-5 of it
+    (a few bf16 ulps: each device rounds its products and casts apart).
+    bf16 MoE runs on the CPU's routes (``MoERoutes``, near ties counted),
+    float32 MoE must choose them."""
+    import dataclasses
+
+    from _torch_parity import MoERoutes
+    from repro_torch.models import moe, rwkv6, ssm
+    from repro_torch.models.layers import dtype_of
+    cfg = dataclasses.replace(rt.get_arch(arch, smoke=True), dtype=dtype)
+    init = {"moe": moe.moe_init, "mamba": ssm.mamba_init,
+            "rwkv": rwkv6.rwkv_init}[name]
+    cpu = init(torch.Generator().manual_seed(0), cfg, "cpu")
+    card = _to(cpu, cuda_device)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (2, 128, cfg.d_model)).astype(np.float32)).to(dtype_of(cfg))
+    routes = MoERoutes()
+    with routes.record() if name == "moe" else contextlib.nullcontext():
+        want = _block(name, cpu, x, cfg)
+    with routes.port(inject=dtype == "bfloat16") if name == "moe" else \
+            contextlib.nullcontext():
+        got = _block(name, card, x.to(cuda_device), cfg)
+    tol = 1e-4 if dtype == "float32" else 2.0**-5
+    for g, w in zip(got, want):
+        g = g.cpu()
+        assert torch.isfinite(g).all()
+        assert float((g - w).abs().max()) <= tol * float(w.abs().max()), name
+
+
+def test_mesh_mode_train_step_on_one_rank_nccl(cuda_device, tmp_path):
+    """The trainer's mesh mode (``--mesh 1x1``, DTensors on a (data,
+    model) DeviceMesh of a one-rank NCCL group) against the single-card
+    trainer from the same weights, float32 smoke model, 2 AdamW steps:
+    losses and grad norms within 1e-5 relative, parameters as
+    ``test_train_step_on_card_matches_cpu`` counts them."""
+    import torch.distributed as dist
+
+    from _torch_dist import MESH_ARGS
+    from repro_torch.launch import train as ttrain
+    from repro_torch.models.sharding import value
+    torch.cuda.set_device(0)
+    argv = [a for a in MESH_ARGS if a not in ("--device", "cpu")] + \
+        ["--device", "cuda"]
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdv",
+                            rank=0, world_size=1)
+    try:
+        cfg = rt.get_arch("qwen3_0_6b", smoke=True)
+        weights = rt.init_params(cfg, 0, device=cuda_device)
+        runs = [ttrain.train(ttrain.build_parser().parse_args(argv + extra),
+                             params=weights, log=lambda _: None)
+                for extra in ([], ["--mesh", "1x1"])]
+        single, mesh = runs
+        for k in ("losses", "grad_norms"):
+            assert mesh[k] == pytest.approx(single[k], rel=1e-5), k
+        far = total = 0
+        from repro_torch.utils.tree import tree_leaves
+        for got, want in zip(tree_leaves(mesh["params"]),
+                             tree_leaves(single["params"])):
+            err = (value(got) - want).abs()
+            assert float(err.max()) <= 4e-3 and float(err.mean()) <= 1e-6
+            far += int((err > 1e-5).sum())
+            total += err.numel()
+        assert far <= 1e-3 * total
+    finally:
+        dist.destroy_process_group()
+
+
+def test_mesh_step_on_four_cards_matches_one_card(cuda_device, tmp_path):
+    """The mesh step on a (2, 2) ("data", "model") NCCL mesh of four cards
+    (``_torch_dist.mesh_card_outputs``): every attention score mode,
+    Mamba's channels and the experts cut over "model", each config's
+    float32 smoke step 1 against the same step on one card: the loss
+    within 1e-5 relative, the gradients within 5e-5 of each leaf's
+    largest magnitude (``test_torch_mesh_train.py`` holds the same modes
+    on gloo CPU ranks against the reference's pjit step)."""
+    import _torch_dist
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices: a (2, 2) mesh of cards")
+    out = _torch_dist.run_ranks(_torch_dist.mesh_card_outputs, 4,
+                                str(tmp_path), timeout=600, backend="nccl")
+    for arch, (loss, one, worst) in out[0].items():
+        assert loss == pytest.approx(one, rel=1e-5), arch
+        assert worst <= 5e-5, arch

@@ -388,15 +388,17 @@ def test_abstract_inputs_and_shapes_mirror_the_reference():
     for arch in ("qwen3_0_6b", "internvl2_1b"):
         jcfg, cfg = j_get_arch(arch), get_arch(arch)
         case = TS.SHAPES["train_4k"]
-        jb, _ = JS.batch_specs(jcfg, JS.SHAPES["train_4k"])
-        tb = TS.batch_specs(cfg, case)
+        jb, jspecs = JS.batch_specs(jcfg, JS.SHAPES["train_4k"])
+        tb, tspecs = TS.batch_specs(cfg, case)
         for k in ("inputs", "labels"):
             assert tuple(tb[k].shape) == jb[k].shape
             assert str(tb[k].dtype).replace("torch.", "") == str(jb[k].dtype)
-        jt, _ = JS.token_specs(jcfg, 8)
-        tt = TS.token_specs(cfg, 8)
+            assert tspecs[k] == tuple(jspecs[k])
+        jt, jspec = JS.token_specs(jcfg, 8)
+        tt, tspec = TS.token_specs(cfg, 8)
         assert tuple(tt.shape) == jt.shape
         assert str(tt.dtype).replace("torch.", "") == str(jt.dtype)
+        assert tspec == tuple(jspec)
     _, cfg, _, _, tp = _models("qwen3_0_6b", "float32")
     tok = torch.from_numpy(_batch(cfg)["inputs"])
     lg, caches = TS.make_prefill_step(cfg)(tp, tok)
@@ -456,18 +458,6 @@ def test_trainer_starts_from_given_weights():
     for a, b in zip(tree_leaves(same["params"]), tree_leaves(drawn["params"])):
         assert torch.equal(a, b)
     assert other["losses"] != same["losses"]
-
-
-def test_trainer_refuses_the_mesh_modes(monkeypatch):
-    """``--mesh`` and a pjit run on more than one rank wait for the
-    sharding slice, and say so."""
-    with pytest.raises(ValueError, match="item 15 part 3"):
-        _train(["--mesh", "2x1"])
-    import torch.distributed as dist
-    monkeypatch.setattr(dist, "is_initialized", lambda: True)
-    monkeypatch.setattr(dist, "get_world_size", lambda *a: 2)
-    with pytest.raises(ValueError, match="item 15 part 3"):
-        _train([])
 
 
 def _ref_ddp(jcfg, opt):
